@@ -17,7 +17,13 @@ Phases, each of which must pass (any failure exits non-zero):
      epoch of 3 steps through ``Trainer.train_epoch`` on the device-cache
      path, then ``compute_score`` on one validation batch. The launch
      counts are zeroed just before the counted epoch and read just after:
-     K1, K2 and K3 must each have launched once per step.
+     K1, K2 and K3 must each have launched once per step;
+  5. the residual tower (``residual_tower``, kernels K4 and K5) at the
+     flagship tower shape x (12, 128, 256, 64), N=16, in f32 and bf16:
+     K4 and K5 against the plain version and its autograd, launch counts
+     (one ``tower_fwd`` per forward, one ``tower_bwd`` per backward), times
+     beside the bound, the plain version and the cuDNN chain (the port's
+     ``ResidualBlock`` x16 with zero conv biases), and peak memory.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. It exits non-zero without a result where CUDA is unavailable or the
@@ -40,6 +46,9 @@ from torch.profiler import ProfilerActivity, profile
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM, bf16 dense tensor cores
+TOWER_SHAPE = (12, 128, 256, 64)  # the LR of HR 512x1024 at 4x, F=64
+TOWER_BLOCKS = 16
 LOSS_SHAPE = (12, 512, 1024, 3)
 # Arithmetic each kernel does per element (one op per add, mul, abs, max,
 # compare; from the source): K1 two 6-tap Sobel sums (22), 2 abs, max,
@@ -56,6 +65,8 @@ TPU_KERNELS = {
     "edge_stats": "srgan_tpu/ops/pallas/recon_loss_kernel.py:114",
     "loss_sums": "srgan_tpu/ops/pallas/recon_loss_kernel.py:144",
     "loss_grad": "srgan_tpu/ops/pallas/recon_loss_kernel.py:188",
+    "tower_fwd": "srgan_tpu/ops/pallas/residual_tower_kernel.py:208",
+    "tower_bwd": "srgan_tpu/ops/pallas/residual_tower_kernel.py:248",
 }
 
 
@@ -284,6 +295,186 @@ def profile_epoch(trainer, pipe, steps: int) -> None:
         print(f"profile:   {us / 1e3 / steps:9.3f} ms/step  {name[:100]}")
 
 
+def _tower_params(tk, dev, g, margin: bool):
+    """Conv weights at the model's lecun scale, std 1/sqrt(9F); GroupNorm
+    scale and bias as in the JAX tests (1.1, 0.05; 0.9, -0.02). ``margin``:
+    GN1 scale 0.1 and bias 1.0, so GN1's output stays above 0 and the ReLU
+    never clips."""
+    n, f = TOWER_BLOCKS, TOWER_SHAPE[-1]
+    w = lambda: torch.randn((n, 3, 3, f, f), generator=g, device=dev) / math.sqrt(9 * f)
+    full = lambda v: torch.full((n, f), v, device=dev)
+    return tk.TowerParams(w(), full(0.1 if margin else 1.1),
+                          full(1.0 if margin else 0.05), w(), full(0.9), full(-0.02))
+
+
+def _tower_grads(fn, tk, x, params, dy, cd):
+    """[y, dx, d params...] of fn under autograd, with dy as the cotangent."""
+    xr = x.clone().requires_grad_(True)
+    pr = [p.clone().requires_grad_(True) for p in params]
+    y = fn(xr, tk.TowerParams(*pr), cd)
+    y.backward(dy)
+    return [y.detach(), xr.grad, *(p.grad for p in pr)]
+
+
+def _errors(got, want):
+    """(max abs err, max of max|Δ|/max|g| and of ||Δ||/||g||) over outputs."""
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
+    fro = [float((a - b).norm() / b.norm()) for a, b in zip(got, want)]
+    return abs_err, rel, fro
+
+
+def _cudnn_chain(tk, params, cd):
+    """The port's ResidualBlock x16, zero conv biases, NCHW, in ``cd``."""
+    from srgan_tpu_torch.models.srresnet import ResidualBlock
+
+    f = TOWER_SHAPE[-1]
+    blocks = []
+    for i in range(TOWER_BLOCKS):
+        blk = ResidualBlock(f)
+        with torch.no_grad():
+            for conv, w in ((blk.conv1, params.w1[i]), (blk.conv2, params.w2[i])):
+                conv.weight.copy_(w.permute(3, 2, 0, 1))
+                conv.bias.zero_()
+            for norm, s, b in ((blk.norm1, params.s1[i], params.b1[i]),
+                               (blk.norm2, params.s2[i], params.b2[i])):
+                norm.weight.copy_(s)
+                norm.bias.copy_(b)
+        blocks.append(blk)
+    return torch.nn.Sequential(*blocks).to(device=params.w1.device, dtype=cd)
+
+
+def tower_dtype_phase(tk, dev, cd) -> list:
+    tag = "f32" if cd == torch.float32 else "bf16"
+    tol = 1e-3 if cd == torch.float32 else 2e-2
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(TOWER_SHAPE, generator=g, device=dev)
+    dy = torch.randn(TOWER_SHAPE, generator=g, device=dev)
+    p_margin = _tower_params(tk, dev, g, margin=True)
+    p_jax = _tower_params(tk, dev, g, margin=False)
+
+    # the main path: forward and backward through the op, counted
+    tk.reset_launches()
+    got = _tower_grads(tk.residual_tower, tk, x, p_margin, dy, cd)
+    torch.cuda.synchronize()
+    counts = dict(tk.launches)
+    check(counts == {"tower_fwd": 1, "tower_bwd": 1},
+          f"tower {tag}: launches {counts}, expected one forward, one backward")
+    want = _tower_grads(tk.residual_tower_plain, tk, x, p_margin, dy, cd)
+    fwd_abs, fwd_rel, _ = _errors(got[:1], want[:1])
+    bwd_abs, bwd_rel, bwd_fro = _errors(got[1:], want[1:])
+    del got, want
+    check(fwd_rel[0] <= tol, f"K4 {tag}: max|dy| {fwd_rel[0]:.3e}*max > {tol}")
+    names = ["dx", *tk.TowerParams._fields]
+    for name, r in zip(names, bwd_rel):
+        check(r <= tol, f"K5 {tag} {name}: max|d| {r:.3e}*max > {tol}")
+
+    # the JAX tests' GN values: the ReLU clips, and a value within rounding
+    # of a kink may fall on the other side in the kernel and in the plain
+    # version, where the gradient jumps. K4 is held to the bar; K5's
+    # gradients only to a sanity bound on ||d||/||g||.
+    y_k = tk.residual_tower(x, p_jax, cd)
+    y_p = tk.residual_tower_plain(x, p_jax, cd)
+    _, kink_fwd_rel, _ = _errors([y_k], [y_p])
+    del y_k, y_p
+    check(kink_fwd_rel[0] <= tol,
+          f"K4 {tag} (ReLU clips): max|dy| {kink_fwd_rel[0]:.3e}*max > {tol}")
+    got = _tower_grads(tk.residual_tower, tk, x, p_jax, dy, cd)
+    want = _tower_grads(tk.residual_tower_plain, tk, x, p_jax, dy, cd)
+    _, kink_rel, kink_fro = _errors(got[1:], want[1:])
+    del got, want
+    sanity = 1e-2 if cd == torch.float32 else 1e-1
+    check(max(kink_fro) <= sanity,
+          f"K5 {tag} (ReLU clips): ||d||/||g|| {max(kink_fro):.3e} > {sanity}")
+    print(f"tower {tag}: margin K4 max|d|/max {fwd_rel[0]:.3e}; K5 max|d|/max "
+          + " ".join(f"{n}={r:.2e}" for n, r in zip(names, bwd_rel))
+          + f"; ReLU clips: K4 {kink_fwd_rel[0]:.3e}, K5 max|d|/max "
+          + " ".join(f"{n}={r:.2e}" for n, r in zip(names, kink_rel))
+          + " ||d||/||g|| " + " ".join(f"{n}={r:.2e}" for n, r in zip(names, kink_fro)),
+          flush=True)
+
+    # times: kernel, plain, cuDNN chain in turns, 5 windows of 2 calls each
+    chain = _cudnn_chain(tk, p_margin, cd)
+    xn = x.permute(0, 3, 1, 2).contiguous().to(cd)
+    dyn = dy.permute(0, 3, 1, 2).contiguous().to(cd)
+    chain_params = list(chain.parameters())
+
+    def plain_fwd_bwd():
+        xr = x.clone().requires_grad_(True)
+        pr = [p.clone().requires_grad_(True) for p in p_margin]
+        y = tk.residual_tower_plain(xr, tk.TowerParams(*pr), cd)
+        torch.autograd.grad(y, [xr, *pr], dy)
+
+    def chain_fwd_bwd():
+        xr = xn.clone().requires_grad_(True)
+        torch.autograd.grad(chain(xr), [xr, *chain_params], dyn)
+
+    def chain_fwd():
+        with torch.no_grad():
+            chain(xn)
+
+    def plain_fwd():
+        with torch.no_grad():
+            tk.residual_tower_plain(x, p_margin, cd)
+
+    fns = {
+        "tower_fwd": (lambda: tk.tower_fwd(x, p_margin, cd), plain_fwd, chain_fwd),
+        "tower_bwd": (lambda: tk.tower_bwd(dy, x, p_margin, cd), plain_fwd_bwd,
+                      chain_fwd_bwd),
+    }
+    b, h, w, f = TOWER_SHAPE
+    conv_ops = 2 * b * h * w * 9 * f * f * 2 * TOWER_BLOCKS  # 2 convs a block
+    act_bytes = b * h * w * f * 4
+    param_bytes = sum(p.numel() * 4 for p in p_margin)
+    peak_ops = FP32_OPS_PER_S if cd == torch.float32 else BF16_OPS_PER_S
+    work = {  # (operations, bytes): each input read once, each output written once
+        "tower_fwd": (conv_ops, 2 * act_bytes + param_bytes),
+        "tower_bwd": (3 * conv_ops, 3 * act_bytes + 2 * param_bytes),
+    }
+    out = []
+    for name, (fn_k, fn_p, fn_c) in fns.items():
+        runs = [time_ms(fn, windows=5, reps=2) for fn in (fn_k, fn_p, fn_c) * 2]
+        ms, plain_ms, chain_ms = (statistics.median(runs[i] + runs[i + 3])
+                                  for i in range(3))
+        t_ops = work[name][0] / peak_ops * 1e3
+        t_bytes = work[name][1] / HBM_BYTES_PER_S * 1e3
+        rec = {
+            "name": f"{name}_{tag}",
+            "route": "cuda",
+            "source": "srgan_tpu_torch/csrc/residual_tower.cu",
+            "replaces": TPU_KERNELS[name],
+            "launches": counts[name],
+            "max_abs_err": fwd_abs if name == "tower_fwd" else bwd_abs,
+            "max_rel_err": max(fwd_rel if name == "tower_fwd" else bwd_rel),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,  # no single PyTorch call: see cudnn_chain_ms
+            "cudnn_chain_ms": chain_ms,
+        }
+        print(f"kernel {rec['name']}: ms={ms:.3f} (windows "
+              f"{min(runs[0] + runs[3]):.3f}..{max(runs[0] + runs[3]):.3f}) "
+              f"plain ms={plain_ms:.3f} cudnn chain ms={chain_ms:.3f} "
+              f"bound_ms={rec['bound_ms']:.3f} ({rec['bound_by']})", flush=True)
+        out.append(rec)
+    return out
+
+
+def tower_phase(dev) -> list:
+    from srgan_tpu_torch.ops.cuda import residual_tower_kernel as tk
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = []
+    for cd in (torch.float32, torch.bfloat16):
+        out += tower_dtype_phase(tk, dev, cd)
+    print(f"tower: phase {time.perf_counter() - t0:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -313,6 +504,7 @@ def main() -> int:
     kernels = kernel_phase(rk, dev)
     small_step_phase(dev)
     counts = training_phase(rk, dev)
+    tower = tower_phase(dev)
 
     line = []
     for name, rec in kernels.items():
@@ -324,7 +516,9 @@ def main() -> int:
             "launches": counts[name],
             **rec,
             "library_ms": None,  # no single PyTorch call computes it
+            "cudnn_chain_ms": None,
         })
+    line += tower
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

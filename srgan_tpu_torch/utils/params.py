@@ -1,5 +1,6 @@
-"""The weight bridge between the flax param tree of
-``srgan_tpu.models.srresnet.SRResNet`` and this port's ``state_dict``.
+"""The weight bridges: the flax param tree of
+``srgan_tpu.models.srresnet.SRResNet`` ↔ this port's ``state_dict``, and
+the JAX residual tower's ``TowerParams`` ↔ the port's (at the end).
 
 Conv kernels are HWIO in flax and OIHW in torch. Names map as:
 
@@ -102,3 +103,27 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
         else:
             sub["scale" if param == "weight" else "bias"] = arr
     return tree
+
+
+_TOWER_FIELDS = ("w1", "s1", "b1", "w2", "s2", "b2")
+
+
+def tower_params_from_jax(tree):
+    """JAX ``TowerParams`` fields (numpy, from ``jax.device_get``; a
+    NamedTuple or a mapping) → the port's ``TowerParams``. Both keep conv
+    weights in HWIO, so the arrays cross unchanged."""
+    from srgan_tpu_torch.ops.cuda.residual_tower_kernel import TowerParams
+
+    get = tree.__getitem__ if isinstance(tree, Mapping) else tree.__getattribute__
+    return TowerParams(*(
+        torch.from_numpy(np.array(get(k), dtype=np.float32)) for k in _TOWER_FIELDS
+    ))
+
+
+def tower_params_to_jax(params) -> dict:
+    """The port's ``TowerParams`` → ``{field: numpy array}``, the inverse of
+    :func:`tower_params_from_jax` (``TowerParams(**d)`` on the JAX side)."""
+    return {
+        k: getattr(params, k).detach().cpu().numpy().astype(np.float32)
+        for k in _TOWER_FIELDS
+    }

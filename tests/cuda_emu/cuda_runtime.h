@@ -1,0 +1,109 @@
+// A CPU stand-in for the part of the CUDA runtime that
+// srgan_tpu_torch/csrc/residual_tower.cu uses, so that g++ can compile the
+// source and the tests can run its kernels on the CPU
+// (tests/test_torch_tower_source.py). Blocks run one at a time; each CUDA
+// thread is a std::thread, __syncthreads is a std::barrier over the block,
+// __shfl_xor_sync exchanges through a per-warp slot array. Dynamic shared
+// memory is one static buffer, filled with garbage before every block as
+// the card leaves it. A launch is written `emu_launch(kernel, grid, block,
+// smem, stream, args...)`: the test rewrites each `kernel<<<...>>>(` so.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+using std::max;
+using std::min;
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __shared__
+#define __align__(n) __attribute__((aligned(n)))
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorLaunchFailure = 4 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+
+inline thread_local dim3 threadIdx;
+inline dim3 blockIdx, blockDim, gridDim;
+inline std::barrier<>* emu_block_barrier = nullptr;
+inline std::barrier<>* emu_warp_barrier[32];
+inline double emu_slots[1024];
+inline size_t emu_smem_limit = 48 * 1024;
+inline int emu_error = 0;
+alignas(16) inline unsigned char tower_smem[1 << 20];
+
+inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+template <typename V>
+V __shfl_xor_sync(unsigned, V v, int lane_mask) {
+  const int t = threadIdx.x, w = t / 32, lane = t % 32;
+  emu_slots[t] = (double)v;
+  emu_warp_barrier[w]->arrive_and_wait();
+  const V r = (V)emu_slots[w * 32 + (lane ^ lane_mask)];
+  emu_warp_barrier[w]->arrive_and_wait();
+  return r;
+}
+
+template <typename K>
+int cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
+  emu_smem_limit = bytes;
+  return cudaSuccess;
+}
+inline int cudaGetLastError() {
+  const int e = emu_error;
+  emu_error = cudaSuccess;
+  return e;
+}
+inline const char* cudaGetErrorString(int e) { return e ? "launch refused" : "no error"; }
+
+// Refuses what the card refuses (too many threads, too much shared memory
+// without the attribute, grid limits), then runs every block in order.
+template <typename... KArgs, typename... Args>
+void emu_launch(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
+                cudaStream_t, Args... args) {
+  const unsigned nt = block.x * block.y * block.z;
+  if (nt > 1024 || nt % 32 || smem > sizeof(tower_smem) ||
+      (smem > 48 * 1024 && smem > emu_smem_limit) || grid.y > 65535 ||
+      grid.z > 65535) {
+    emu_error = cudaErrorLaunchFailure;
+    return;
+  }
+  emu_smem_limit = 48 * 1024;
+  gridDim = grid;
+  blockDim = block;
+  std::barrier<> bar(nt);
+  emu_block_barrier = &bar;
+  for (unsigned w = 0; w < nt / 32; ++w) emu_warp_barrier[w] = new std::barrier<>(32);
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        blockIdx = dim3(x, y, z);
+        std::memset(tower_smem, 0xAB, smem);
+        std::vector<std::thread> threads;
+        for (unsigned t = 0; t < nt; ++t)
+          threads.emplace_back([&, t] {
+            threadIdx = dim3(t);
+            kernel(args...);
+          });
+        for (auto& th : threads) th.join();
+      }
+  for (unsigned w = 0; w < nt / 32; ++w) delete emu_warp_barrier[w];
+}

@@ -86,3 +86,77 @@ class TestCudaKernels:
             )
             out.append(m["packed"].cpu())
         np.testing.assert_allclose(out[0][:3].numpy(), out[1][:3].numpy(), rtol=1e-4)
+
+
+def _tower_inputs(shape, n, margin, device):
+    """x, dy and TowerParams on ``device``. ``margin``: GN1 scale 0.1 and
+    bias 1.0, so GN1's output stays above 0 and the ReLU never clips (see
+    ``test_tower_kernels_match_plain``); else the JAX tests' values."""
+    from srgan_tpu_torch.ops.cuda import residual_tower_kernel as tk
+
+    rng = np.random.default_rng(0)
+    f = shape[-1]
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    w = lambda: t(rng.standard_normal((n, 3, 3, f, f)) / np.sqrt(9 * f))
+    full = lambda v: t(np.full((n, f), v))
+    params = tk.TowerParams(w(), full(0.1 if margin else 1.1),
+                            full(1.0 if margin else 0.05), w(), full(0.9), full(-0.02))
+    return t(rng.standard_normal(shape)), t(rng.standard_normal(shape)), params
+
+
+@pytest.mark.cuda
+class TestCudaTower:
+    """K4 and K5 against the plain version and its autograd, at shapes whose
+    H and W are not multiples of the conv tile. Bars: max|Δ| ≤ 1e-3·max
+    (f32) and 2e-2·max (bf16) for y, and for every gradient where the ReLU
+    never clips (``margin``). With the JAX tests' GN values the ReLU clips,
+    and a value within rounding of a kink can fall on one side in the
+    kernel and on the other in the plain version (other f32 summation
+    orders), where the gradient jumps: there the gradients are held to
+    ||Δ||/||g|| ≤ 1e-2 (f32) / 1e-1 (bf16), as in chip_smoke.py."""
+
+    @pytest.mark.parametrize("margin", [True, False], ids=["margin", "clips"])
+    @pytest.mark.parametrize("shape,n", [((2, 9, 21, 16), 2), ((1, 16, 32, 64), 3)])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_tower_kernels_match_plain(self, cuda_device, shape, n, dtype, margin):
+        from srgan_tpu_torch.ops.cuda import residual_tower_kernel as tk
+
+        cd = getattr(torch, dtype)
+        tol = 1e-3 if cd == torch.float32 else 2e-2
+        norm_tol = 1e-2 if cd == torch.float32 else 1e-1
+        x, dy, params = _tower_inputs(shape, n, margin, cuda_device)
+        outs = []
+        for fn in (tk.residual_tower, tk.residual_tower_plain):
+            tk.reset_launches()
+            xr = x.clone().requires_grad_(True)
+            pr = [p.clone().requires_grad_(True) for p in params]
+            y = fn(xr, tk.TowerParams(*pr), cd)
+            grads = torch.autograd.grad(y, [xr, *pr], dy)
+            outs.append([y.detach(), *grads])
+            if fn is tk.residual_tower:
+                assert tk.launches == {"tower_fwd": 1, "tower_bwd": 1}
+        assert tk.launches == {"tower_fwd": 0, "tower_bwd": 0}
+        for name, a, b in zip(["y", "dx", *tk.TowerParams._fields], *outs):
+            if margin or name == "y":
+                err = float((a - b).abs().max() / b.abs().max())
+                assert err <= tol, f"{name}: max|Δ| {err:.2e}·max > {tol}"
+            else:
+                err = float((a - b).norm() / b.norm())
+                assert err <= norm_tol, f"{name}: ||Δ||/||g|| {err:.2e} > {norm_tol}"
+
+    def test_tower_wrappers_reject_bad_input(self, cuda_device):
+        from srgan_tpu_torch.ops.cuda import residual_tower_kernel as tk
+
+        x, dy, params = _tower_inputs((1, 8, 8, 16), 1, False, cuda_device)
+        with pytest.raises(ValueError, match="contiguous"):
+            tk.tower_fwd(x.transpose(1, 2), params)
+        with pytest.raises(TypeError):
+            tk.tower_fwd(x.double(), params)
+        with pytest.raises(TypeError):
+            tk.tower_bwd(dy, x, tk.TowerParams(*(p.double() for p in params)))
+        x12, _, p12 = _tower_inputs((1, 8, 8, 12), 1, False, cuda_device)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            tk.tower_fwd(x12, p12)
+        x24, _, p24 = _tower_inputs((1, 8, 8, 24), 1, False, cuda_device)
+        with pytest.raises(ValueError, match="16, 32, 64, 128"):
+            tk.residual_tower(x24, p24)
