@@ -21,9 +21,12 @@ Phases, each of which must pass (any failure exits non-zero):
   5. the residual tower (``residual_tower``, kernels K4 and K5) at the
      flagship tower shape x (12, 128, 256, 64), N=16, in f32 and bf16:
      K4 and K5 against the plain version and its autograd, launch counts
-     (one ``tower_fwd`` per forward, one ``tower_bwd`` per backward), times
+     (one ``tower_fwd`` per forward, one ``tower_bwd`` per backward), two
+     calls bit-identical, the conv and wgrad kernels each mode launches
+     (bf16: the tensor-core tiles only; f32: the SIMT tiles only), times
      beside the bound, the plain version and the cuDNN chain (the port's
-     ``ResidualBlock`` x16 with zero conv biases), and peak memory.
+     ``ResidualBlock`` x16 with zero conv biases), achieved TFLOP/s of the
+     kernel and the chain, and peak memory.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. It exits non-zero without a result where CUDA is unavailable or the
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -344,6 +348,44 @@ def _cudnn_chain(tk, params, cd):
     return torch.nn.Sequential(*blocks).to(device=params.w1.device, dtype=cd)
 
 
+def tower_determinism(tk, x, params, dy, cd, tag: str) -> None:
+    """Two calls of K4 and of K5 on the same inputs agree bit for bit: no
+    float atomics, every reduction in a fixed order."""
+    ys = [tk.tower_fwd(x, params, cd) for _ in range(2)]
+    outs = [tk.tower_bwd(dy, x, params, cd) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(torch.equal(*ys), f"K4 {tag}: two calls differ")
+    (dx1, g1), (dx2, g2) = outs
+    check(all(torch.equal(a, b) for a, b in zip([dx1, *g1], [dx2, *g2])),
+          f"K5 {tag}: two calls differ")
+    print(f"tower {tag}: K4 and K5 bit-identical over two calls", flush=True)
+
+
+def tower_kernel_names(tk, x, params, dy, cd, tag: str) -> None:
+    """The kernels that one K4 and one K5 call launch, by the profiler,
+    with their device time: the bf16 mode's convs and weight gradients run
+    only the tensor-core tiles (``*_tc_kernel``), the f32 mode's only the
+    SIMT ones."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tk.tower_fwd(x, params, cd)
+        tk.tower_bwd(dy, x, params, cd)
+        torch.cuda.synchronize()
+    by_kernel: dict = {}  # name -> [launches, device us]
+    for e in _device_events(prof):
+        m = re.search(r"\w+_kernel\b", e.name)
+        rec = by_kernel.setdefault(m.group(0) if m else e.name[:40], [0, 0.0])
+        rec[0] += 1
+        rec[1] += e.time_range.elapsed_us()
+    tiles = {k for k in by_kernel if re.fullmatch(r"(conv|wgrad)(_tc)?_kernel", k)}
+    want = ({"conv_tc_kernel", "wgrad_tc_kernel"} if cd == torch.bfloat16
+            else {"conv_kernel", "wgrad_kernel"})
+    check(tiles == want, f"tower {tag}: conv/wgrad kernels {tiles}, expected {want}")
+    print(f"tower {tag}: one K4 + one K5 call, device ms (launches) by kernel: "
+          + "; ".join(f"{k} {us / 1e3:.3f} ({n})" for k, (n, us)
+                      in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])),
+          flush=True)
+
+
 def tower_dtype_phase(tk, dev, cd) -> list:
     tag = "f32" if cd == torch.float32 else "bf16"
     tol = 1e-3 if cd == torch.float32 else 2e-2
@@ -392,6 +434,8 @@ def tower_dtype_phase(tk, dev, cd) -> list:
           + " ".join(f"{n}={r:.2e}" for n, r in zip(names, kink_rel))
           + " ||d||/||g|| " + " ".join(f"{n}={r:.2e}" for n, r in zip(names, kink_fro)),
           flush=True)
+    tower_determinism(tk, x, p_margin, dy, cd, tag)
+    tower_kernel_names(tk, x, p_margin, dy, cd, tag)
 
     # times: kernel, plain, cuDNN chain in turns, 5 windows of 2 calls each
     chain = _cudnn_chain(tk, p_margin, cd)
@@ -438,6 +482,9 @@ def tower_dtype_phase(tk, dev, cd) -> list:
                                   for i in range(3))
         t_ops = work[name][0] / peak_ops * 1e3
         t_bytes = work[name][1] / HBM_BYTES_PER_S * 1e3
+        # the chain does the same convs (its zero biases add a pass each)
+        tflops, chain_tflops = (work[name][0] / (t * 1e-3) / 1e12
+                                for t in (ms, chain_ms))
         rec = {
             "name": f"{name}_{tag}",
             "route": "cuda",
@@ -452,11 +499,14 @@ def tower_dtype_phase(tk, dev, cd) -> list:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,  # no single PyTorch call: see cudnn_chain_ms
             "cudnn_chain_ms": chain_ms,
+            "tflops": tflops,
+            "cudnn_chain_tflops": chain_tflops,
         }
         print(f"kernel {rec['name']}: ms={ms:.3f} (windows "
               f"{min(runs[0] + runs[3]):.3f}..{max(runs[0] + runs[3]):.3f}) "
               f"plain ms={plain_ms:.3f} cudnn chain ms={chain_ms:.3f} "
-              f"bound_ms={rec['bound_ms']:.3f} ({rec['bound_by']})", flush=True)
+              f"bound_ms={rec['bound_ms']:.3f} ({rec['bound_by']}); "
+              f"TFLOP/s {tflops:.1f} (chain {chain_tflops:.1f})", flush=True)
         out.append(rec)
     return out
 
@@ -517,6 +567,8 @@ def main() -> int:
             **rec,
             "library_ms": None,  # no single PyTorch call computes it
             "cudnn_chain_ms": None,
+            "tflops": None,
+            "cudnn_chain_tflops": None,
         })
     line += tower
     print(json.dumps({"kernels": line}))

@@ -16,10 +16,34 @@
 //       TFLOP/s, dense tensor cores).
 //   K5: at least 3x the forward (one replay, dgrad, wgrad): 2,783 GFLOP,
 //       41.5 ms in f32, 2.81 ms in bf16.
-// These kernels use FMA on the CUDA cores in both dtypes (bf16 operands are
-// widened to f32; a product of two bf16 values is exact in f32), so the
-// f32 bound is the one they can approach; mma/wgmma tiles for bf16 are
-// later work.
+// Two sets of tiles, chosen by the compute dtype in forward_blocks and
+// backward_blocks:
+//   f32   conv_kernel / wgrad_kernel: FMA on the CUDA cores (TF32 stays
+//         off), so the f32 bound is the one they can approach.
+//   bf16  conv_tc_kernel / wgrad_tc_kernel: every conv and weight gradient
+//         of the mode, the dX convs included, on the tensor cores with
+//         mma.sync m16n8k16 (bf16 operands, f32 accumulators), fed by
+//         ldmatrix from shared memory staged in bf16. cp.async brings the
+//         bf16 sources (weights, the bf16 carry) and double-buffers the
+//         conv's per-tap weights; f32 sources (c1 with GN1, dc) are loaded
+//         four float4 a thread at a time and rounded while staged. The PTX
+//         sits behind the small device functions of tower_mma.cuh. Every
+//         tensor-core operand is already an exact bf16 value (the bf16
+//         carry, the weights the wrapper rounds, round(relu(GN1)), dc
+//         rounded by gn_bwd_apply), so these tiles change only the
+//         summation order, not the rounding.
+//   With the tensor cores, bytes set the bf16 mode's floor: c1, c2 and dc
+//   stay f32 in device memory. At the flagship shape one f32 activation is
+//   101 MB, a bf16 one 50 MB; per block the forward reads the bf16 input
+//   twice (conv1, skip), writes c1 and reads it back (conv2), writes c2 and
+//   reads it back (GN2 + skip), and writes the next input: 0.55 GB a block,
+//   8.9 GB for K4 (2.6 ms at 3.35 TB/s); K5, with the replay, the
+//   GroupNorm backward's passes and dc, moves ~39 GB (11.5 ms). The tiles
+//   run at 2-3x that floor: few warps an SM (3 conv blocks, 2 wgrad blocks
+//   of 8 warps), with staging, products and epilogue separated by
+//   barriers. The next step is wgmma with TMA and warp-specialised
+//   pipelines, then c1/c2 kept on chip (a block's conv1 -> GN1 -> conv2
+//   fused per image strip, the statistics in a second pass).
 //
 // Design. The TPU kernel keeps one image's whole (H, W, F) activation in
 // VMEM and loops over the blocks on chip. A Hopper SM has 227 KB of shared
@@ -28,15 +52,26 @@
 // host loop over the blocks, a few launches per block, each launch on the
 // caller's stream with no host sync:
 //
-//   conv_kernel      implicit-GEMM 3x3 conv: a (16 x TH) pixel tile times
-//                    F_out per thread block, K = 9 * F_in staged 16 input
-//                    channels at a time ((tile + halo) x 16 activations
-//                    and the 9 taps' 16 x F weights in shared memory), f32
-//                    accumulators in registers (4 pixels x 8 channels per
-//                    thread). Its operand load can apply GN1 + ReLU +
-//                    rounding on the fly (conv2 reads c1; r is never
+//   conv_kernel      (f32) implicit-GEMM 3x3 conv: a (16 x TH) pixel tile
+//                    times F_out per thread block, K = 9 * F_in staged 16
+//                    input channels at a time ((tile + halo) x 16
+//                    activations and the 9 taps' 16 x F weights in shared
+//                    memory), f32 accumulators in registers (4 pixels x 8
+//                    channels per thread). Its operand load can apply GN1 +
+//                    ReLU + rounding on the fly (conv2 reads c1; r is never
 //                    written). Its epilogue writes per-(image, group) tile
 //                    sums of c and c^2 in fp64, or adds a residual (dX).
+//   conv_tc_kernel   (bf16) the same conv on the tensor cores: a block owns
+//                    8 rows x 16 columns = 128 pixels (M), all F outputs
+//                    (N), K = 9 * F. It stages the (10 x 18) x F patch once
+//                    in bf16, with the same on-the-fly activation, and the
+//                    taps' F x F weights one tap at a time in two buffers
+//                    (the next tap's copy in flight during this tap's
+//                    products). Warp w owns tile row w: 16 pixels x F
+//                    outputs, F/8 m16n8 accumulators. Rows are padded by 16
+//                    bytes, so ldmatrix reads them without bank conflicts.
+//                    The epilogue goes through shared memory and then is
+//                    conv_kernel's: f32 stores, the residual, fp64 sums.
 //   gn_stats         fixed-order sum of those partials: mean and
 //                    rsqrt(E[c^2] - E[c]^2 + 1e-6) per (image, group).
 //   gn_skip          carry = round(GN2(c2) + a) in the compute dtype.
@@ -44,10 +79,21 @@
 //                    (image, channel) sums of dout and dout*z in fp64
 //                    partials, a one-block fixed-order finalise (dscale,
 //                    dbias and the group means), then dc elementwise.
-//   wgrad_kernel     dW[tap] = patch(input)^T . dc, K = every pixel of
-//                    every image, split into <= 64 pixel chunks with f32
-//                    partials, summed in a fixed order by wgrad_reduce.
-//   dX               the same conv_kernel on flipped, transposed taps.
+//   wgrad_kernel     (f32) dW[tap] = patch(input)^T . dc, K = every pixel
+//                    of every image, split into <= 64 pixel chunks with
+//                    f32 partials, summed in a fixed order by wgrad_reduce.
+//   wgrad_tc_kernel  (bf16) the same GEMM on the tensor cores. A block
+//                    walks a chunk of 8 x 16 pixel tiles; each tile's
+//                    (10 x 18) x F input patch and its 128 x F_out slice of
+//                    dc are staged once in bf16 (two buffers: the next
+//                    tile is staged before this one's products, its
+//                    cp.async copies in flight during them) and serve all
+//                    9 taps, which are shifts of the patch read with
+//                    ldmatrix.trans. F_out is split across blocks (32 or 16
+//                    columns each), not taps: a warp owns one 16 x 16
+//                    (F_in, F_out) tile for its taps, 9 x 8 accumulators at
+//                    F = 64. Per-chunk f32 partials, then wgrad_reduce.
+//   dX               the forward's conv tile on flipped, transposed taps.
 //
 // No float atomics anywhere: results are the same from run to run. A
 // persistent cooperative kernel with grid-wide syncs would save the
@@ -79,6 +125,8 @@
 
 #include <type_traits>
 
+#include "tower_mma.cuh"
+
 extern __shared__ __align__(16) unsigned char tower_smem[];
 
 namespace {
@@ -97,6 +145,11 @@ constexpr int kWgradPix = 32;       // wgrad: pixels staged per step
 constexpr int kMaxWgradChunks = 64;
 constexpr int kMaxRedChunks = 32;
 constexpr int kStatThreads = 128;
+constexpr int kTcRows = kWarps;           // tensor-core tiles: a row per warp
+constexpr int kTcPix = kTcRows * kTileW;  // 128 pixels
+constexpr int kTcPatchH = kTcRows + 2;
+constexpr int kTcPatchW = kTileW + 2;
+constexpr int kMaxTcChunks = 128;         // wgrad_tc: pixel-tile chunks
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -577,6 +630,416 @@ wgrad_reduce_kernel(const float* __restrict__ partial, int chunks, int n,
   dw[e] = (float)s;
 }
 
+// ----------------------------------------------- tensor-core tiles ----
+
+struct alignas(8) Bf16x4 {
+  bf16 v[4];
+};
+
+// A row of C bf16 values in shared memory takes C + 8: rows then start 16
+// bytes apart modulo 128, so the 8 rows that one ldmatrix phase reads fall
+// in 8 distinct 16-byte bank groups (C a multiple of 8).
+template <int C>
+__host__ __device__ constexpr int tc_stride() { return C + 8; }
+
+// s[py, px, 0:C] = act(in[b, gy0 + py, gx0 + px, c0 : c0 + C]) in bf16 for
+// a ROWS x COLS rectangle, zero outside the image, pixel rows `stride`
+// apart; act as in conv_kernel, its rounding that of the bf16 store. A bf16
+// source without GN comes in by cp.async (the caller commits and waits),
+// an f32 one through registers, kBatch float4 loads in flight per thread.
+template <int F, int C, int ROWS, int COLS, typename Tin, bool GN_IN>
+__device__ __forceinline__ void stage_rect(
+    const Tin* __restrict__ in, const float* __restrict__ gn_stats,
+    const float* __restrict__ gn_s, const float* __restrict__ gn_b, int nG,
+    int b, int H, int W, int gy0, int gx0, int c0, bf16* s, int stride) {
+  constexpr bool kAsync = std::is_same<Tin, bf16>::value && !GN_IN;
+  static_assert(kAsync || std::is_same<Tin, float>::value, "source type");
+  constexpr int kVec = kAsync ? 8 : 4;  // channels per step
+  constexpr int kPer = C / kVec;
+  constexpr int kN = ROWS * COLS * kPer;
+  constexpr int kBatch = 4;
+  // element i: pixel i / kPer of the rectangle, channels from (i % kPer) * kVec
+  auto locate = [&](int i, bf16*& dst, int64_t& src) {
+    const int pix = i / kPer;
+    const int cv = (i - pix * kPer) * kVec;
+    const int py = pix / COLS;
+    const int gy = gy0 + py;
+    const int gx = gx0 + pix - py * COLS;
+    dst = s + pix * stride + cv;
+    src = (((int64_t)b * H + gy) * W + gx) * F + c0 + cv;
+    return gy >= 0 && gy < H && gx >= 0 && gx < W;
+  };
+  if constexpr (kAsync) {
+    for (int i = threadIdx.x; i < kN; i += kThreads) {
+      bf16* dst;
+      int64_t src;
+      if (locate(i, dst, src)) {
+        cp_async_16(dst, in + src);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int i0 = threadIdx.x; i0 < kN; i0 += kBatch * kThreads) {
+      float4 q[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {  // the loads first, then the stores
+        const int i = i0 + u * kThreads;
+        bf16* dst;
+        int64_t src;
+        q[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < kN && locate(i, dst, src))
+          q[u] = *reinterpret_cast<const float4*>(in + src);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kThreads;
+        if (i >= kN) break;
+        bf16* dst;
+        int64_t src;
+        const bool inside = locate(i, dst, src);
+        float v[4] = {q[u].x, q[u].y, q[u].z, q[u].w};
+        if (GN_IN && inside) {
+          const int c = c0 + (i % kPer) * kVec;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int g = b * kGroups + (c + j) / (F / kGroups);
+            v[j] = fmaxf(gn_affine(v[j], gn_stats[g], gn_stats[nG + g],
+                                   gn_s[c + j], gn_b[c + j]), 0.f);
+          }
+        }
+        Bf16x4 o;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o.v[j] = __float2bfloat16(v[j]);
+        *reinterpret_cast<Bf16x4*>(dst) = o;
+      }
+    }
+  }
+}
+
+template <int F>
+struct TcConvShape {
+  static constexpr int kStride = tc_stride<F>();
+  static constexpr int kTapElems = F * kStride;  // one tap's (F_in, F_out)
+  static constexpr size_t kTapOffset =
+      align16((size_t)kTcPatchH * kTcPatchW * kStride * sizeof(bf16));
+  static constexpr size_t kStageBytes = kTapOffset + 2 * kTapElems * sizeof(bf16);
+  static constexpr int kOutStride = F + 4;  // the f32 tile of the epilogue
+  static constexpr size_t kOutBytes = (size_t)kTcPix * kOutStride * sizeof(float);
+  // the epilogue's thread layout, as ConvShape's
+  static constexpr int kCoGroups = F / kChanPerThread;
+  static constexpr int kPixGroups = kThreads / kCoGroups;
+  static constexpr int kPixPerThread = kTcPix / kPixGroups;
+  static constexpr int kGroupSize = F / kGroups;
+  static constexpr int kSlotChans = kGroupSize < kChanPerThread ? kGroupSize
+                                                                : kChanPerThread;
+  static constexpr int kSlots = kChanPerThread / kSlotChans;
+  static constexpr size_t kStatOffset =
+      align16(kStageBytes > kOutBytes ? kStageBytes : kOutBytes);
+  static constexpr size_t kSmemBytes =
+      kStatOffset + (size_t)kWarps * kCoGroups * kSlots * 2 * sizeof(double);
+  static_assert(kTcPix % kPixGroups == 0 && F % 16 == 0, "tile");
+};
+
+// w (9, F_in, F_out) bf16, tap `tap`, into s by cp.async (16 bytes a copy)
+template <int F>
+__device__ __forceinline__ void stage_tap(const bf16* __restrict__ w, int tap,
+                                          bf16* s) {
+  constexpr int kPer = F / 8;
+  for (int i = threadIdx.x; i < F * kPer; i += kThreads) {
+    const int ci = i / kPer;
+    const int cv = (i - ci * kPer) * 8;
+    cp_async_16(s + ci * tc_stride<F>() + cv, w + ((int64_t)tap * F + ci) * F + cv);
+  }
+}
+
+// conv_kernel's function on the tensor cores; w (9, F_in, F_out) bf16.
+// Three blocks an SM up to F = 64 (<= 85 registers, 45 KB of shared memory
+// at F = 64); F = 128 takes 118 KB, one block.
+template <int F, typename Tin, bool GN_IN>
+__global__ void __launch_bounds__(kThreads, F <= 64 ? 3 : 1)
+conv_tc_kernel(const Tin* __restrict__ in, const bf16* __restrict__ w,
+               const float* __restrict__ gn_stats, const float* __restrict__ gn_s,
+               const float* __restrict__ gn_b, int H, int W,
+               float* __restrict__ out, const float* __restrict__ add,
+               double* __restrict__ stat_partials) {
+  using S = TcConvShape<F>;
+  bf16* s_patch = reinterpret_cast<bf16*>(tower_smem);
+  bf16* s_tap = reinterpret_cast<bf16*>(tower_smem + S::kTapOffset);
+  float* s_out = reinterpret_cast<float*>(tower_smem);  // after the products
+  double* s_stat = reinterpret_cast<double*>(tower_smem + S::kStatOffset);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int b = blockIdx.z;
+  const int y0 = blockIdx.y * kTcRows;
+  const int x0 = blockIdx.x * kTileW;
+  const int nG = gridDim.z * kGroups;
+
+  stage_rect<F, F, kTcPatchH, kTcPatchW, Tin, GN_IN>(
+      in, gn_stats, gn_s, gn_b, nG, b, H, W, y0 - 1, x0 - 1, 0, s_patch,
+      S::kStride);
+  stage_tap<F>(w, 0, s_tap);
+  cp_async_commit();
+
+  // lane l gives the address of row l % 8 of matrix l / 8. A (pixels x
+  // F_in, ldmatrix): matrices (pixels 0-7, k 0-7), (8-15, 0-7), (0-7,
+  // 8-15), (8-15, 8-15) = a[0..3]. B (F_in x F_out, ldmatrix.trans of the
+  // row-major taps): (k 0-7, n 0-7), (8-15, 0-7), (0-7, 8-15), (8-15,
+  // 8-15) = b0, b1 of two n8 tiles.
+  const int lrow = lane % 8 + 8 * ((lane / 8) % 2);
+  const int lcol = 8 * (lane / 16);
+  float acc[F / 8][4];
+#pragma unroll
+  for (int j = 0; j < F / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    if (tap + 1 < 9) {  // the next tap's weights, in flight during this one
+      stage_tap<F>(w, tap + 1, s_tap + ((tap + 1) % 2) * S::kTapElems);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int di = tap / 3;
+    const int dj = tap - di * 3;
+    const bf16* a_row =
+        s_patch + ((warp + di) * kTcPatchW + lrow + dj) * S::kStride + lcol;
+    const bf16* b_row = s_tap + (tap % 2) * S::kTapElems + lrow * S::kStride + lcol;
+#pragma unroll
+    for (int k0 = 0; k0 < F; k0 += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_row + k0);
+#pragma unroll
+      for (int n = 0; n < F / 16; ++n) {
+        uint32_t bq[4];
+        ldmatrix_x4_trans(bq, b_row + k0 * S::kStride + 16 * n);
+        mma_bf16_16816(acc[2 * n], a, bq[0], bq[1]);
+        mma_bf16_16816(acc[2 * n + 1], a, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // this tap's buffer is consumed
+  }
+
+  // the f32 tile through shared memory: d[0], d[1] = (pixel g, channels
+  // 2t, 2t+1) and d[2], d[3] = (pixel g + 8, same), g = lane / 4, t = lane % 4
+  {
+    float* o = s_out + (warp * kTileW + lane / 4) * S::kOutStride + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < F / 8; ++j) {
+      o[8 * j] = acc[j][0];
+      o[8 * j + 1] = acc[j][1];
+      o[8 * S::kOutStride + 8 * j] = acc[j][2];
+      o[8 * S::kOutStride + 8 * j + 1] = acc[j][3];
+    }
+  }
+  __syncthreads();
+
+  // conv_kernel's epilogue: store, residual, the group sums of this tile
+  const int co_grp = tid % S::kCoGroups;
+  const int pg = tid / S::kCoGroups;
+  const int co0 = co_grp * kChanPerThread;
+  double st[S::kSlots][2];
+#pragma unroll
+  for (int q = 0; q < S::kSlots; ++q) st[q][0] = st[q][1] = 0.0;
+#pragma unroll
+  for (int k = 0; k < S::kPixPerThread; ++k) {
+    const int p = pg + k * S::kPixGroups;
+    const int y = y0 + p / kTileW;
+    const int x = x0 + p % kTileW;
+    if (y < H && x < W) {
+      const int64_t off = (((int64_t)b * H + y) * W + x) * F + co0;
+      const float* src = s_out + p * S::kOutStride + co0;
+      float v[kChanPerThread];
+#pragma unroll
+      for (int j = 0; j < kChanPerThread; ++j) {
+        v[j] = src[j];
+        if (add != nullptr) v[j] += add[off + j];
+        st[j / S::kSlotChans][0] += (double)v[j];
+        st[j / S::kSlotChans][1] += (double)v[j] * (double)v[j];
+      }
+      reinterpret_cast<float4*>(out + off)[0] = make_float4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<float4*>(out + off)[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+  if (stat_partials == nullptr) return;  // uniform over the block
+
+#pragma unroll
+  for (int q = 0; q < S::kSlots; ++q) {
+#pragma unroll
+    for (int m = S::kCoGroups; m < 32; m *= 2) {
+      st[q][0] += __shfl_xor_sync(0xffffffffu, st[q][0], m);
+      st[q][1] += __shfl_xor_sync(0xffffffffu, st[q][1], m);
+    }
+  }
+  if (lane < S::kCoGroups) {  // lane == co_grp here
+#pragma unroll
+    for (int q = 0; q < S::kSlots; ++q) {
+      double* d = s_stat + ((warp * S::kCoGroups + lane) * S::kSlots + q) * 2;
+      d[0] = st[q][0];
+      d[1] = st[q][1];
+    }
+  }
+  __syncthreads();
+  if (tid < kGroups) {
+    double s = 0.0, ss = 0.0;
+    for (int wp = 0; wp < kWarps; ++wp)
+      for (int c = 0; c < S::kCoGroups; ++c)
+        for (int q = 0; q < S::kSlots; ++q) {
+          const int g = (c * kChanPerThread + q * S::kSlotChans) / S::kGroupSize;
+          if (g != tid) continue;
+          const double* d = s_stat + ((wp * S::kCoGroups + c) * S::kSlots + q) * 2;
+          s += d[0];
+          ss += d[1];
+        }
+    const int64_t tile =
+        ((int64_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    stat_partials[(tile * kGroups + tid) * 2] = s;
+    stat_partials[(tile * kGroups + tid) * 2 + 1] = ss;
+  }
+}
+
+template <int F>
+struct TcWgradShape {
+  static constexpr int kCB = F == 128 ? 16 : (F < 32 ? F : 32);  // F_out a block
+  static constexpr int kSplits = F / kCB;
+  static constexpr int kMT = F / 16;   // F_in tiles of 16
+  static constexpr int kNB = kCB / 16; // F_out tiles of 16 in a block
+  static constexpr int kPairs = kMT * kNB;
+  static constexpr int kWarpsPerPair = kWarps / kPairs;
+  static constexpr int kTaps = (9 + kWarpsPerPair - 1) / kWarpsPerPair;  // a warp's
+  static constexpr int kStride = tc_stride<F>();
+  static constexpr int kDcStride = tc_stride<kCB>();
+  static constexpr size_t kDcOffset =
+      align16((size_t)kTcPatchH * kTcPatchW * kStride * sizeof(bf16));
+  static constexpr size_t kBufBytes =
+      align16(kDcOffset + (size_t)kTcPix * kDcStride * sizeof(bf16));
+  static constexpr size_t kSmemBytes = 2 * kBufBytes;
+  static_assert(kPairs <= kWarps && kWarps % kPairs == 0, "warps");
+};
+
+// Tile t of the (B, H/8, W/16) grid of 8 x 16 pixel tiles, into buffer s:
+// its (10 x 18) x F input patch, activated, and its 128 x kCB slice of dc.
+template <int F, typename Tin, bool GN_IN>
+__device__ __forceinline__ void stage_wgrad_tile(
+    const Tin* __restrict__ in, const float* __restrict__ gn_stats,
+    const float* __restrict__ gn_s, const float* __restrict__ gn_b,
+    const float* __restrict__ dc, int B, int H, int W, int tiles_x,
+    int tiles_y, int t, int co_base, unsigned char* s) {
+  using S = TcWgradShape<F>;
+  const int b = t / (tiles_x * tiles_y);
+  const int r = t - b * tiles_x * tiles_y;
+  const int y0 = r / tiles_x * kTcRows;
+  const int x0 = r % tiles_x * kTileW;
+  stage_rect<F, F, kTcPatchH, kTcPatchW, Tin, GN_IN>(
+      in, gn_stats, gn_s, gn_b, B * kGroups, b, H, W, y0 - 1, x0 - 1, 0,
+      reinterpret_cast<bf16*>(s), S::kStride);
+  stage_rect<F, S::kCB, kTcRows, kTileW, float, false>(
+      dc, nullptr, nullptr, nullptr, 0, b, H, W, y0, x0, co_base,
+      reinterpret_cast<bf16*>(s + S::kDcOffset), S::kDcStride);
+}
+
+// wgrad_kernel's function on the tensor cores. Grid (chunks, kSplits):
+// block (c, s) sums tiles [c * per_chunk, (c + 1) * per_chunk) into
+// partial[c, tap, ci, s * kCB : (s + 1) * kCB] for every tap.
+template <int F, typename Tin, bool GN_IN>
+__global__ void __launch_bounds__(kThreads, 2)  // two blocks an SM: <= 128 registers
+wgrad_tc_kernel(const Tin* __restrict__ in, const float* __restrict__ gn_stats,
+                const float* __restrict__ gn_s, const float* __restrict__ gn_b,
+                const float* __restrict__ dc, int B, int H, int W, int per_chunk,
+                float* __restrict__ partial) {
+  using S = TcWgradShape<F>;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int co_base = blockIdx.y * S::kCB;
+  const int pair = warp % S::kPairs;
+  const int mt = pair % S::kMT;          // this warp's 16 F_in
+  const int nb = pair / S::kMT;          // and 16 F_out of the block's kCB
+  const int tap0 = warp / S::kPairs * S::kTaps;
+  const int tiles_x = (W + kTileW - 1) / kTileW;
+  const int tiles_y = (H + kTcRows - 1) / kTcRows;
+  const int t_begin = blockIdx.x * per_chunk;
+  const int t_end = min(t_begin + per_chunk, B * tiles_x * tiles_y);
+
+  // A (F_in x pixels) = the patch shifted by the tap, read with
+  // ldmatrix.trans: matrices (ci 0-7, px 0-7), (8-15, 0-7), (0-7, 8-15),
+  // (8-15, 8-15) = a[0..3], lane l addressing pixel l % 8 + 8 (l / 16) at
+  // channel offset 8 ((l / 8) % 2). B (pixels x F_out) = dc, as the conv's
+  // weights.
+  const int a_pix = lane % 8 + 8 * (lane / 16);
+  const int a_ch = mt * 16 + 8 * ((lane / 8) % 2);
+  const int b_pix = lane % 8 + 8 * ((lane / 8) % 2);
+  const int b_ch = nb * 16 + 8 * (lane / 16);
+  float acc[S::kTaps][2][4];
+#pragma unroll
+  for (int k = 0; k < S::kTaps; ++k)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[k][h][i] = 0.f;
+
+  if (t_begin < t_end)
+    stage_wgrad_tile<F, Tin, GN_IN>(in, gn_stats, gn_s, gn_b, dc, B, H, W,
+                                    tiles_x, tiles_y, t_begin, co_base, tower_smem);
+  cp_async_commit();
+#pragma unroll 1
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) % 2;
+    if (t + 1 < t_end) {  // the next tile, in flight during this one
+      stage_wgrad_tile<F, Tin, GN_IN>(in, gn_stats, gn_s, gn_b, dc, B, H, W,
+                                      tiles_x, tiles_y, t + 1, co_base,
+                                      tower_smem + (1 - buf) * S::kBufBytes);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* patch = reinterpret_cast<const bf16*>(tower_smem + buf * S::kBufBytes);
+    const bf16* dcs = reinterpret_cast<const bf16*>(tower_smem + buf * S::kBufBytes +
+                                                    S::kDcOffset);
+#pragma unroll 1
+    for (int row = 0; row < kTcRows; ++row) {  // K: 16 pixels a step
+      uint32_t bq[4];
+      ldmatrix_x4_trans(bq, dcs + (row * kTileW + b_pix) * S::kDcStride + b_ch);
+#pragma unroll
+      for (int k = 0; k < S::kTaps; ++k) {
+        const int tap = tap0 + k;
+        if (tap < 9) {  // uniform over the warp
+          const int di = tap / 3;
+          const int dj = tap - di * 3;
+          uint32_t a[4];
+          ldmatrix_x4_trans(
+              a, patch + ((row + di) * kTcPatchW + a_pix + dj) * S::kStride + a_ch);
+          mma_bf16_16816(acc[k][0], a, bq[0], bq[1]);
+          mma_bf16_16816(acc[k][1], a, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // this buffer is consumed
+  }
+
+  float* out = partial + (int64_t)blockIdx.x * 9 * F * F;
+  const int ci = mt * 16 + lane / 4;
+  const int co = co_base + nb * 16 + 2 * (lane % 4);
+#pragma unroll
+  for (int k = 0; k < S::kTaps; ++k) {
+    const int tap = tap0 + k;
+    if (tap >= 9) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        out[((int64_t)tap * F + ci + 8 * (i / 2)) * F + co + 8 * h + i % 2] =
+            acc[k][h][i];
+  }
+}
+
 // ------------------------------------------------------------- host ----
 
 template <int F>
@@ -648,19 +1111,97 @@ void launch_wgrad(const Tin* in, const float* gn_stats, const float* gn_s,
       partial, chunks, n, dw);
 }
 
+dim3 tc_conv_grid(int B, int H, int W) {
+  return dim3((W + kTileW - 1) / kTileW, (H + kTcRows - 1) / kTcRows, B);
+}
+
+int tc_conv_tiles(int H, int W) {
+  const dim3 g = tc_conv_grid(1, H, W);
+  return (int)(g.x * g.y);
+}
+
+// 8 x 16 pixel tiles per wgrad_tc chunk, and the chunk count
+void tc_wgrad_split(int B, int H, int W, int* per, int* chunks) {
+  const int tiles = B * tc_conv_tiles(H, W);
+  const int n = tiles < kMaxTcChunks ? tiles : kMaxTcChunks;
+  *per = (tiles + n - 1) / n;
+  *chunks = (tiles + *per - 1) / *per;
+}
+
+template <int F, typename Tin, bool GN_IN>
+void launch_conv_tc(const Tin* in, const bf16* w, const float* gn_stats,
+                    const float* gn_s, const float* gn_b, int B, int H, int W,
+                    float* out, const float* add, double* stat_partials,
+                    cudaStream_t st) {
+  constexpr size_t smem = TcConvShape<F>::kSmemBytes;
+  auto kernel = conv_tc_kernel<F, Tin, GN_IN>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<tc_conv_grid(B, H, W), kThreads, smem, st>>>(
+      in, w, gn_stats, gn_s, gn_b, H, W, out, add, stat_partials);
+}
+
+template <int F, typename Tin, bool GN_IN>
+void launch_wgrad_tc(const Tin* in, const float* gn_stats, const float* gn_s,
+                     const float* gn_b, const float* dc, int B, int H, int W,
+                     float* partial, float* dw, cudaStream_t st) {
+  constexpr size_t smem = TcWgradShape<F>::kSmemBytes;
+  int per, chunks;
+  tc_wgrad_split(B, H, W, &per, &chunks);
+  auto kernel = wgrad_tc_kernel<F, Tin, GN_IN>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<dim3(chunks, TcWgradShape<F>::kSplits), kThreads, smem, st>>>(
+      in, gn_stats, gn_s, gn_b, dc, B, H, W, per, partial);
+  const int n = 9 * F * F;
+  wgrad_reduce_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      partial, chunks, n, dw);
+}
+
+// The tiles by compute dtype T: f32 on the CUDA cores, bf16 on the tensor
+// cores (weights w in T).
+template <typename T>
+constexpr bool is_bf16() { return std::is_same<T, bf16>::value; }
+
+template <int F, typename T, typename Tin, bool GN_IN>
+void conv(const Tin* in, const T* w, const float* gn_stats, const float* gn_s,
+          const float* gn_b, int B, int H, int W, float* out, const float* add,
+          double* stat_partials, cudaStream_t st) {
+  if constexpr (is_bf16<T>()) {
+    launch_conv_tc<F, Tin, GN_IN>(in, w, gn_stats, gn_s, gn_b, B, H, W, out,
+                                  add, stat_partials, st);
+  } else {
+    launch_conv<F, Tin, GN_IN, false>(in, w, gn_stats, gn_s, gn_b, B, H, W,
+                                      out, add, stat_partials, st);
+  }
+}
+
+template <int F, typename T, typename Tin, bool GN_IN>
+void wgrad(const Tin* in, const float* gn_stats, const float* gn_s,
+           const float* gn_b, const float* dc, int B, int H, int W,
+           float* partial, float* dw, cudaStream_t st) {
+  if constexpr (is_bf16<T>()) {
+    launch_wgrad_tc<F, Tin, GN_IN>(in, gn_stats, gn_s, gn_b, dc, B, H, W,
+                                   partial, dw, st);
+  } else {
+    launch_wgrad<F, Tin, GN_IN, false>(in, gn_stats, gn_s, gn_b, dc, B, H, W,
+                                       partial, dw, st);
+  }
+}
+
 // The forward over N blocks. a(n) is block n's input: x for n = 0, else
 // a slice of `carry` (all N - 1 kept when `save`, else two in turn); c1,
 // c2 and stats likewise per block when `save`, else one slot. The last
 // block writes y; with y null (the backward's replay) it is skipped.
 template <int F, typename T>
-void forward_blocks(const T* x, T* y, const float* w1, const float* s1,
-                    const float* b1, const float* w2, const float* s2,
-                    const float* b2, int N, int B, int H, int W, bool round,
-                    bool save, T* carry, float* c1, float* c2, float* stats,
+void forward_blocks(const T* x, T* y, const T* w1, const float* s1,
+                    const float* b1, const T* w2, const float* s2,
+                    const float* b2, int N, int B, int H, int W, bool save,
+                    T* carry, float* c1, float* c2, float* stats,
                     double* partials, cudaStream_t st) {
   const int64_t act = (int64_t)B * H * W * F;
   const int hwf = H * W * F;
-  const int tiles = conv_tiles<F>(H, W);
+  const int tiles = is_bf16<T>() ? tc_conv_tiles(H, W) : conv_tiles<F>(H, W);
   const double count = (double)H * W * (F / kGroups);
   const int nst = 4 * B * kGroups;  // mean1, inv1, mean2, inv2
   auto a_at = [&](int n) -> T* {
@@ -673,18 +1214,11 @@ void forward_blocks(const T* x, T* y, const float* w1, const float* s1,
     float* st1 = stats + (save ? n * nst : 0);
     float* st2 = st1 + 2 * B * kGroups;
     const int64_t wo = (int64_t)n * 9 * F * F;
-    launch_conv<F, T, false, false>(a, w1 + wo, nullptr, nullptr, nullptr, B,
-                                    H, W, c1n, nullptr, partials, st);
+    conv<F, T, T, false>(a, w1 + wo, nullptr, nullptr, nullptr, B, H, W, c1n,
+                         nullptr, partials, st);
     launch_stats(partials, B, tiles, count, st1, st);
-    if (round) {
-      launch_conv<F, float, true, true>(c1n, w2 + wo, st1, s1 + n * F,
-                                        b1 + n * F, B, H, W, c2n, nullptr,
-                                        partials, st);
-    } else {
-      launch_conv<F, float, true, false>(c1n, w2 + wo, st1, s1 + n * F,
-                                         b1 + n * F, B, H, W, c2n, nullptr,
-                                         partials, st);
-    }
+    conv<F, T, float, true>(c1n, w2 + wo, st1, s1 + n * F, b1 + n * F, B, H, W,
+                            c2n, nullptr, partials, st);
     launch_stats(partials, B, tiles, count, st2, st);
     T* out = n == N - 1 ? y : a_at(n + 1);
     if (out != nullptr) {
@@ -726,18 +1260,19 @@ void gn_backward(const float* src, const float* c, const float* stats,
 }
 
 template <int F, typename T>
-void backward_blocks(const float* dy, const T* x, const float* w1,
-                     const float* s1, const float* b1, const float* w2,
-                     const float* s2, const float* b2, const float* wt1,
-                     const float* wt2, int N, int B, int H, int W, bool round,
-                     float* dx, float* dw1, float* ds1, float* db1, float* dw2,
+void backward_blocks(const float* dy, const T* x, const T* w1,
+                     const float* s1, const float* b1, const T* w2,
+                     const float* s2, const float* b2, const T* wt1,
+                     const T* wt2, int N, int B, int H, int W, float* dx,
+                     float* dw1, float* ds1, float* db1, float* dw2,
                      float* ds2, float* db2, const BwdScratch& k,
                      cudaStream_t st) {
   const int64_t act = (int64_t)B * H * W * F;
   const int nst = 4 * B * kGroups;
+  const bool round = is_bf16<T>();  // dc, a conv operand, in the compute dtype
   T* carry = static_cast<T*>(k.carry);
-  forward_blocks<F, T>(x, nullptr, w1, s1, b1, w2, s2, b2, N, B, H, W, round,
-                       true, carry, k.c1, k.c2, k.stats, k.partials, st);
+  forward_blocks<F, T>(x, nullptr, w1, s1, b1, w2, s2, b2, N, B, H, W, true,
+                       carry, k.c1, k.c2, k.stats, k.partials, st);
   const float* da = dy;
   for (int n = N - 1; n >= 0; --n) {
     const T* a = n == 0 ? x : carry + (int64_t)(n - 1) * act;
@@ -749,24 +1284,18 @@ void backward_blocks(const float* dy, const T* x, const float* w1,
     // GN2, then conv2's weights (its input r rebuilt from c1) and input
     gn_backward<F, false>(da, c2n, st2, s2 + n * F, b2 + n * F, B, H, W,
                           round, k, ds2 + n * F, db2 + n * F, st);
-    if (round) {
-      launch_wgrad<F, float, true, true>(c1n, st1, s1 + n * F, b1 + n * F,
-                                         k.dc, B, H, W, k.wpart, dw2 + wo, st);
-    } else {
-      launch_wgrad<F, float, true, false>(c1n, st1, s1 + n * F, b1 + n * F,
-                                          k.dc, B, H, W, k.wpart, dw2 + wo, st);
-    }
-    launch_conv<F, float, false, false>(k.dc, wt2 + wo, nullptr, nullptr,
-                                        nullptr, B, H, W, k.dr, nullptr,
-                                        nullptr, st);
+    wgrad<F, T, float, true>(c1n, st1, s1 + n * F, b1 + n * F, k.dc, B, H, W,
+                             k.wpart, dw2 + wo, st);
+    conv<F, T, float, false>(k.dc, wt2 + wo, nullptr, nullptr, nullptr, B, H,
+                             W, k.dr, nullptr, nullptr, st);
     // the ReLU mask and GN1, then conv1's weights and input, plus the skip
     gn_backward<F, true>(k.dr, c1n, st1, s1 + n * F, b1 + n * F, B, H, W,
                          round, k, ds1 + n * F, db1 + n * F, st);
-    launch_wgrad<F, T, false, false>(a, nullptr, nullptr, nullptr, k.dc, B, H,
-                                     W, k.wpart, dw1 + wo, st);
+    wgrad<F, T, T, false>(a, nullptr, nullptr, nullptr, k.dc, B, H, W, k.wpart,
+                          dw1 + wo, st);
     float* out = n == 0 ? dx : k.da + (n % 2) * act;
-    launch_conv<F, float, false, false>(k.dc, wt1 + wo, nullptr, nullptr,
-                                        nullptr, B, H, W, out, da, nullptr, st);
+    conv<F, T, float, false>(k.dc, wt1 + wo, nullptr, nullptr, nullptr, B, H,
+                             W, out, da, nullptr, st);
     da = out;
   }
 }
@@ -787,7 +1316,7 @@ int with_features(int N, int B, int H, int W, int F, Fn&& fn) {
 }
 
 int partials_doubles(int B, int H, int W, int F) {
-  int tiles = 0;
+  int tiles = 0;  // per image, of the f32 conv tile
   switch (F) {
     case 16: tiles = conv_tiles<16>(H, W); break;
     case 32: tiles = conv_tiles<32>(H, W); break;
@@ -795,7 +1324,8 @@ int partials_doubles(int B, int H, int W, int F) {
     case 128: tiles = conv_tiles<128>(H, W); break;
     default: return -1;
   }
-  const int conv = B * tiles * kGroups * 2;
+  const int tc = tc_conv_tiles(H, W);
+  const int conv = B * (tiles > tc ? tiles : tc) * kGroups * 2;
   const int red = B * red_chunks(H, W) * F * 2;
   return conv > red ? conv : red;
 }
@@ -808,52 +1338,52 @@ const char* tower_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Sizes of the scratch buffers the wrapper allocates: the fp64 partials
-// (conv tile sums or GroupNorm-backward chunk sums) and the f32 wgrad
-// partials; -1 for an F the source does not instantiate.
+// Sizes of the scratch buffers the wrapper allocates, enough for either
+// dtype: the fp64 partials (conv tile sums or GroupNorm-backward chunk
+// sums) and the f32 wgrad partials; -1 for an F the source does not
+// instantiate.
 int tower_partials_doubles(int B, int H, int W, int F) {
   return partials_doubles(B, H, W, F);
 }
 
 int tower_wgrad_floats(int B, int H, int W, int F) {
-  int chunk, chunks;
+  int chunk, chunks, per, tc_chunks;
   wgrad_split(B, H, W, &chunk, &chunks);
-  return chunks * 9 * F * F;
+  tc_wgrad_split(B, H, W, &per, &tc_chunks);
+  return (chunks > tc_chunks ? chunks : tc_chunks) * 9 * F * F;
 }
 
-// K4. x and y (B, H, W, F) in the compute dtype (bf16 if `bf16`, else
-// f32); w1, w2 (N, 9, F, F) f32 already rounded to the compute dtype;
-// s1, b1, s2, b2 (N, F) f32. Scratch: carry (2 activations, compute dtype),
-// c1 and c2 (one f32 activation each), stats (4*B*8 f32), partials.
-int tower_forward(const void* x, void* y, const float* w1, const float* s1,
-                  const float* b1, const float* w2, const float* s2,
+// K4. x and y (B, H, W, F) and w1, w2 (N, 9, F, F) in the compute dtype
+// (bf16 if `bf16`, else f32); s1, b1, s2, b2 (N, F) f32. Scratch: carry
+// (2 activations, compute dtype), c1 and c2 (one f32 activation each),
+// stats (4*B*8 f32), partials.
+int tower_forward(const void* x, void* y, const void* w1, const float* s1,
+                  const float* b1, const void* w2, const float* s2,
                   const float* b2, int N, int B, int H, int W, int F, int bf16,
                   void* carry, float* c1, float* c2, float* stats,
                   double* partials, cudaStream_t stream) {
   return with_features(N, B, H, W, F, [&](auto f) {
     constexpr int kF = decltype(f)::value;
-    if (bf16) {
-      forward_blocks<kF, __nv_bfloat16>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
-          w1, s1, b1, w2, s2, b2, N, B, H, W, true, false,
-          static_cast<__nv_bfloat16*>(carry), c1, c2, stats, partials, stream);
-    } else {
-      forward_blocks<kF, float>(
-          static_cast<const float*>(x), static_cast<float*>(y), w1, s1, b1, w2,
-          s2, b2, N, B, H, W, false, false, static_cast<float*>(carry), c1, c2,
-          stats, partials, stream);
-    }
+    auto run = [&](auto t) {
+      using T = decltype(t);
+      forward_blocks<kF, T>(static_cast<const T*>(x), static_cast<T*>(y),
+                            static_cast<const T*>(w1), s1, b1,
+                            static_cast<const T*>(w2), s2, b2, N, B, H, W,
+                            false, static_cast<T*>(carry), c1, c2, stats,
+                            partials, stream);
+    };
+    if (bf16) run(__nv_bfloat16{}); else run(0.f);
   });
 }
 
-// K5. dy f32 and x (compute dtype) (B, H, W, F); w1, w2 rounded as for K4;
-// wt1, wt2 the same taps flipped and transposed (the dX conv's weights).
-// Outputs, all f32: dx (B, H, W, F), dw1, dw2 (N, 9, F, F), ds1, db1, ds2,
-// db2 (N, F). Scratch as listed in BwdScratch.
-int tower_backward(const float* dy, const void* x, const float* w1,
-                   const float* s1, const float* b1, const float* w2,
-                   const float* s2, const float* b2, const float* wt1,
-                   const float* wt2, int N, int B, int H, int W, int F,
+// K5. dy f32 and x (compute dtype) (B, H, W, F); w1, w2 as for K4; wt1,
+// wt2 the same taps flipped and transposed (the dX conv's weights), in
+// the compute dtype. Outputs, all f32: dx (B, H, W, F), dw1, dw2 (N, 9,
+// F, F), ds1, db1, ds2, db2 (N, F). Scratch as listed in BwdScratch.
+int tower_backward(const float* dy, const void* x, const void* w1,
+                   const float* s1, const float* b1, const void* w2,
+                   const float* s2, const float* b2, const void* wt1,
+                   const void* wt2, int N, int B, int H, int W, int F,
                    int bf16, float* dx, float* dw1, float* ds1, float* db1,
                    float* dw2, float* ds2, float* db2, void* carry, float* c1,
                    float* c2, float* stats, double* partials, double* sums,
@@ -862,16 +1392,15 @@ int tower_backward(const float* dy, const void* x, const float* w1,
   const BwdScratch k{carry, c1, c2, stats, partials, sums, m, dc, dr, da, wpart};
   return with_features(N, B, H, W, F, [&](auto f) {
     constexpr int kF = decltype(f)::value;
-    if (bf16) {
-      backward_blocks<kF, __nv_bfloat16>(
-          dy, static_cast<const __nv_bfloat16*>(x), w1, s1, b1, w2, s2, b2,
-          wt1, wt2, N, B, H, W, true, dx, dw1, ds1, db1, dw2, ds2, db2, k,
-          stream);
-    } else {
-      backward_blocks<kF, float>(
-          dy, static_cast<const float*>(x), w1, s1, b1, w2, s2, b2, wt1, wt2,
-          N, B, H, W, false, dx, dw1, ds1, db1, dw2, ds2, db2, k, stream);
-    }
+    auto run = [&](auto t) {
+      using T = decltype(t);
+      backward_blocks<kF, T>(
+          dy, static_cast<const T*>(x), static_cast<const T*>(w1), s1, b1,
+          static_cast<const T*>(w2), s2, b2, static_cast<const T*>(wt1),
+          static_cast<const T*>(wt2), N, B, H, W, dx, dw1, ds1, db1, dw2, ds2,
+          db2, k, stream);
+    };
+    if (bf16) run(__nv_bfloat16{}); else run(0.f);
   });
 }
 

@@ -1,8 +1,9 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with ``nvcc``
-into ``_build/lib<name>-<hash>.so`` (the hash covers the source and the
-flags, so an edit rebuilds), then loaded with ``ctypes``. Nothing is built
+into ``_build/lib<name>-<hash>.so`` (the hash covers the source, every
+``csrc/*.cuh`` header and the flags, so an edit to any of them rebuilds),
+then loaded with ``ctypes``. Nothing is built
 when a module is imported: the first call that needs a library builds it.
 ``build()`` compiles several sources at once, one ``nvcc`` each, all started
 together.
@@ -42,11 +43,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:

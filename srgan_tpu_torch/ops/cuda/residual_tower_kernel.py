@@ -201,12 +201,13 @@ def _raise_if_failed(lib, rc: int, what: str) -> None:
 
 
 def _kernel_weights(params: TowerParams, compute_dtype, transposed: bool):
-    """(w1, w2) f32, rounded to the compute dtype; ``transposed``: the taps
-    flipped and each (F_in, F_out) matrix transposed, the weights of the
-    conv that is the transpose of the forward's (the dX conv)."""
+    """(w1, w2) in the compute dtype (the bf16 tiles read bf16 weights);
+    ``transposed``: the taps flipped and each (F_in, F_out) matrix
+    transposed, the weights of the conv that is the transpose of the
+    forward's (the dX conv)."""
     out = []
     for w in (params.w1, params.w2):
-        w = _round(w, compute_dtype)
+        w = w.to(compute_dtype)
         if transposed:
             w = w.flip(1, 2).transpose(3, 4)
         out.append(w.contiguous())

@@ -23,7 +23,7 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__
 #define __align__(n) __attribute__((aligned(n)))
 
@@ -75,7 +75,10 @@ inline int cudaGetLastError() {
 inline const char* cudaGetErrorString(int e) { return e ? "launch refused" : "no error"; }
 
 // Refuses what the card refuses (too many threads, too much shared memory
-// without the attribute, grid limits), then runs every block in order.
+// without the attribute, grid limits), then runs every block in order
+// (x fastest). The block's threads are made once per launch: between two
+// blocks they meet at the block barrier while thread 0 moves blockIdx on
+// and refills shared memory with garbage.
 template <typename... KArgs, typename... Args>
 void emu_launch(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
                 cudaStream_t, Args... args) {
@@ -92,18 +95,21 @@ void emu_launch(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
   std::barrier<> bar(nt);
   emu_block_barrier = &bar;
   for (unsigned w = 0; w < nt / 32; ++w) emu_warp_barrier[w] = new std::barrier<>(32);
-  for (unsigned z = 0; z < grid.z; ++z)
-    for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
-        blockIdx = dim3(x, y, z);
-        std::memset(tower_smem, 0xAB, smem);
-        std::vector<std::thread> threads;
-        for (unsigned t = 0; t < nt; ++t)
-          threads.emplace_back([&, t] {
-            threadIdx = dim3(t);
-            kernel(args...);
-          });
-        for (auto& th : threads) th.join();
+  const unsigned blocks = grid.x * grid.y * grid.z;
+  std::vector<std::thread> threads;
+  for (unsigned t = 0; t < nt; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      for (unsigned i = 0; i < blocks; ++i) {
+        if (t == 0) {
+          blockIdx = dim3(i % grid.x, i / grid.x % grid.y, i / (grid.x * grid.y));
+          std::memset(tower_smem, 0xAB, smem);
+        }
+        bar.arrive_and_wait();
+        kernel(args...);
+        bar.arrive_and_wait();
       }
+    });
+  for (auto& th : threads) th.join();
   for (unsigned w = 0; w < nt / 32; ++w) delete emu_warp_barrier[w];
 }
