@@ -23,7 +23,9 @@ Phases, each of which must pass (any failure exits non-zero):
      K4 and K5 against the plain version and its autograd, launch counts
      (one ``tower_fwd`` per forward, one ``tower_bwd`` per backward), two
      calls bit-identical, the conv and wgrad kernels each mode launches
-     (bf16: the tensor-core tiles only; f32: the SIMT tiles only), times
+     (bf16: the tensor-core tiles only; f32: the SIMT tiles only) with
+     each tile's device ms and TFLOP/s per launch (and ms per launch with
+     and without GN1 + ReLU on its operand), times
      beside the bound, the plain version and the cuDNN chain (the port's
      ``ResidualBlock`` x16 with zero conv biases), achieved TFLOP/s of the
      kernel and the chain, and peak memory.
@@ -371,18 +373,36 @@ def tower_kernel_names(tk, x, params, dy, cd, tag: str) -> None:
         tk.tower_bwd(dy, x, params, cd)
         torch.cuda.synchronize()
     by_kernel: dict = {}  # name -> [launches, device us]
+    by_operand: dict = {}  # (tile, GN1 + ReLU on its operand) -> [launches, device us]
     for e in _device_events(prof):
         m = re.search(r"\w+_kernel\b", e.name)
-        rec = by_kernel.setdefault(m.group(0) if m else e.name[:40], [0, 0.0])
-        rec[0] += 1
-        rec[1] += e.time_range.elapsed_us()
+        name = m.group(0) if m else e.name[:40]
+        us = e.time_range.elapsed_us()
+        recs = [by_kernel.setdefault(name, [0, 0.0])]
+        # the tiles' last template argument is GN_IN: conv2 and dW2 read
+        # relu(GN1(c1)), conv1, dX and dW1 a plain operand
+        if re.fullmatch(r"(conv|wgrad)(_tc)?_kernel", name):
+            gn = re.search(rf"{name}<[^<>]*\b(true|false)>", e.name)
+            if gn:
+                recs.append(by_operand.setdefault((name, gn.group(1) == "true"), [0, 0.0]))
+        for rec in recs:
+            rec[0] += 1
+            rec[1] += us
     tiles = {k for k in by_kernel if re.fullmatch(r"(conv|wgrad)(_tc)?_kernel", k)}
     want = ({"conv_tc_kernel", "wgrad_tc_kernel"} if cd == torch.bfloat16
             else {"conv_kernel", "wgrad_kernel"})
     check(tiles == want, f"tower {tag}: conv/wgrad kernels {tiles}, expected {want}")
+    b, h, w, f = x.shape
+    tile_ops = 2 * b * h * w * 9 * f * f  # one conv, or one weight gradient
     print(f"tower {tag}: one K4 + one K5 call, device ms (launches) by kernel: "
           + "; ".join(f"{k} {us / 1e3:.3f} ({n})" for k, (n, us)
-                      in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])),
+                      in sorted(by_kernel.items(), key=lambda kv: -kv[1][1]))
+          + "; per launch of each tile: "
+          + "; ".join(f"{k} {us / n / 1e3:.4f} ms {tile_ops / (us / n * 1e-6) / 1e12:.1f} "
+                      f"TFLOP/s" for k, (n, us) in sorted(by_kernel.items()) if k in tiles)
+          + "; by operand: "
+          + "; ".join(f"{k}{' (GN1 + ReLU)' if gn else ''} {us / n / 1e3:.4f} ms ({n})"
+                      for (k, gn), (n, us) in sorted(by_operand.items())),
           flush=True)
 
 
@@ -540,7 +560,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "entry function" in line or "registers" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

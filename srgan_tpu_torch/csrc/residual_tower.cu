@@ -19,7 +19,23 @@
 // Two sets of tiles, chosen by the compute dtype in forward_blocks and
 // backward_blocks:
 //   f32   conv_kernel / wgrad_kernel: FMA on the CUDA cores (TF32 stays
-//         off), so the f32 bound is the one they can approach.
+//         off), so the f32 bound is the one they can approach. An H100 SM
+//         issues four warp-wide FFMA a clock but serves about one shared-
+//         memory wavefront a clock, twice the FMA per wavefront of an A100
+//         SM: a SIMT tile is held back by the shared-memory loads behind
+//         each FMA, and by staging that its products wait for. So each
+//         thread reuses every loaded value many times from registers: the
+//         conv 45 loads per 576 FMA (a 4 x 4 pixel block x 4 channels, the
+//         9 taps' weights of one input channel held in registers), the
+//         wgrad 3 float4 loads per 96 FMA (3 taps x 4 F_in x 8 F_out, the
+//         input window sliding along a pixel row). Both stage their f32
+//         operands by cp.async into two buffers, the next step's copies in
+//         flight during this step's products, one barrier a step. Where the
+//         operand is r = relu(GN1(c1)) (conv2 and its weight gradient), each
+//         thread applies GN1 + ReLU in place to the elements it copied, once
+//         they have landed. Both tiles then run at ~64 % of the fp32 rate
+//         with loops of almost only FFMA (PERF.md); what holds them there
+//         is not measured (no ncu on the machine with the card).
 //   bf16  conv_tc_kernel / wgrad_tc_kernel: every conv and weight gradient
 //         of the mode, the dX convs included, on the tensor cores with
 //         mma.sync m16n8k16 (bf16 operands, f32 accumulators), fed by
@@ -52,15 +68,17 @@
 // host loop over the blocks, a few launches per block, each launch on the
 // caller's stream with no host sync:
 //
-//   conv_kernel      (f32) implicit-GEMM 3x3 conv: a (16 x TH) pixel tile
-//                    times F_out per thread block, K = 9 * F_in staged 16
-//                    input channels at a time ((tile + halo) x 16
-//                    activations and the 9 taps' 16 x F weights in shared
-//                    memory), f32 accumulators in registers (4 pixels x 8
-//                    channels per thread). Its operand load can apply GN1 +
-//                    ReLU + rounding on the fly (conv2 reads c1; r is never
-//                    written). Its epilogue writes per-(image, group) tile
-//                    sums of c and c^2 in fp64, or adds a residual (dX).
+//   conv_kernel      (f32) implicit-GEMM 3x3 conv. A block owns 16 columns
+//                    x 1024 / F rows (16 x 16 pixels at F = 64) and all F
+//                    outputs; a thread owns a 4 x 4 pixel block x 4 output
+//                    channels. K = 9 * F_in is staged kChunkC = 8 input
+//                    channels at a time: the (tile + halo) patch and the 9
+//                    taps' weight rows. Per input channel a thread holds the
+//                    9 taps' weights in registers and reads its 6 x 6
+//                    activations once, row by row. The operand can be
+//                    relu(GN1(c1)) (conv2 reads c1; r is never written).
+//                    The epilogue writes per-(image, group) tile sums of c
+//                    and c^2 in fp64, or adds a residual (dX).
 //   conv_tc_kernel   (bf16) the same conv on the tensor cores: a block owns
 //                    8 rows x 16 columns = 128 pixels (M), all F outputs
 //                    (N), K = 9 * F. It stages the (10 x 18) x F patch once
@@ -80,8 +98,17 @@
 //                    partials, a one-block fixed-order finalise (dscale,
 //                    dbias and the group means), then dc elementwise.
 //   wgrad_kernel     (f32) dW[tap] = patch(input)^T . dc, K = every pixel
-//                    of every image, split into <= 64 pixel chunks with
-//                    f32 partials, summed in a fixed order by wgrad_reduce.
+//                    of every image. A block of 12 warps at F = 64 walks a
+//                    chunk of 8 x 16 pixel tiles; each tile's (10 x 18) x F
+//                    input patch and its 128 x F_out slice of dc are staged
+//                    once and serve all 9 taps. A lane owns one tap row di,
+//                    its 3 taps x 4 F_in x 8 F_out (96 accumulators), and
+//                    walks each tile row left to right: the input pixels
+//                    its taps read at x are those at x - 1 one step
+//                    earlier. F_out is split across blocks only at F = 128.
+//                    Per-chunk f32 partials (<= kMaxWgradChunks chunks,
+//                    1,536 pixels each at the flagship shape), summed in
+//                    chunk order by wgrad_reduce.
 //   wgrad_tc_kernel  (bf16) the same GEMM on the tensor cores. A block
 //                    walks a chunk of 8 x 16 pixel tiles; each tile's
 //                    (10 x 18) x F input patch and its 128 x F_out slice of
@@ -137,12 +164,13 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroups = 8;          // GroupNorm groups
 constexpr double kEps = 1e-6;       // flax GroupNorm default
-constexpr int kTileW = 16;          // conv: output tile width in pixels
-constexpr int kChunkC = 16;         // conv: input channels staged per step
-constexpr int kPixPerThread = 4;    // conv: output pixels per thread
-constexpr int kChanPerThread = 8;   // conv: output channels per thread
-constexpr int kWgradPix = 32;       // wgrad: pixels staged per step
-constexpr int kMaxWgradChunks = 64;
+constexpr int kTileW = 16;          // conv tiles: output tile width in pixels
+constexpr int kChanPerThread = 8;   // conv_tc epilogue: channels per thread
+constexpr int kChunkC = 8;          // conv: input channels staged per step
+constexpr int kWgRows = 8;          // wgrad: pixel tile rows
+constexpr int kWgCols = 16;         // wgrad: pixel tile columns
+constexpr int kWgPix = kWgRows * kWgCols;
+constexpr int kMaxWgradChunks = 256;
 constexpr int kMaxRedChunks = 32;
 constexpr int kStatThreads = 128;
 constexpr int kTcRows = kWarps;           // tensor-core tiles: a row per warp
@@ -178,157 +206,248 @@ __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) / 16 * 
 
 // ------------------------------------------------------------- conv ----
 
+// s[py, px, 0:C] = src[b, gy0 + py, gx0 + px, c0 : c0 + C] (an activation
+// of F channels) for a ROWS x COLS rectangle, pixel rows STRIDE floats
+// apart, zero outside the image: 16 bytes a cp.async, NT threads sharing
+// the copies (the caller commits and waits). NT is a multiple of C / 4, so
+// a thread copies the same 4 channels of every pixel it copies.
+template <int F, int C, int ROWS, int COLS, int STRIDE, int NT>
+__device__ __forceinline__ void copy_rect(const float* __restrict__ src, int b,
+                                          int H, int W, int gy0, int gx0, int c0,
+                                          float* s) {
+  constexpr int kPer = C / 4;
+  static_assert(NT % kPer == 0, "channels");
+  const int cv = threadIdx.x % kPer * 4;
+  for (int pix = threadIdx.x / kPer; pix < ROWS * COLS; pix += NT / kPer) {
+    const int py = pix / COLS;
+    const int gy = gy0 + py;
+    const int gx = gx0 + pix - py * COLS;
+    float* dst = s + pix * STRIDE + cv;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      cp_async_16(dst, src + (((int64_t)b * H + gy) * W + gx) * F + c0 + cv);
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+// The same rectangle once this thread's copies have landed: each thread
+// turns the elements it copied into relu(GN(v)) in place, with gn(c) =
+// (mean, inv, scale, bias) of channel c read once for its 4 channels;
+// outside the image they stay zero, the conv's padding.
+template <int C, int ROWS, int COLS, int STRIDE, int NT, typename Gn>
+__device__ __forceinline__ void gn_relu_rect(float* s, Gn gn, int H, int W,
+                                             int gy0, int gx0, int c0) {
+  constexpr int kPer = C / 4;
+  const int cv = threadIdx.x % kPer * 4;
+  float4 q[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) q[j] = gn(c0 + cv + j);
+  for (int pix = threadIdx.x / kPer; pix < ROWS * COLS; pix += NT / kPer) {
+    const int py = pix / COLS;
+    const int gy = gy0 + py;
+    const int gx = gx0 + pix - py * COLS;
+    if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
+    float4* p = reinterpret_cast<float4*>(s + pix * STRIDE + cv);
+    float v[4] = {p->x, p->y, p->z, p->w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = fmaxf(gn_affine(v[j], q[j].x, q[j].y, q[j].z, q[j].w), 0.f);
+    *p = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
 template <int F>
 struct ConvShape {
-  static constexpr int kCoGroups = F / kChanPerThread;        // 2..16
-  static constexpr int kPixGroups = kThreads / kCoGroups;     // 128..16
-  static constexpr int kTileH = kPixGroups * kPixPerThread / kTileW;
+  static constexpr int kCoGroups = F / 4;                   // 4 channels a thread
+  static constexpr int kPixGroups = kThreads / kCoGroups;   // 64..8 blocks of 4 x 4
+  static constexpr int kTileH = kPixGroups / 4 * 4;  // rows of 4 blocks, 4 pixels high
   static constexpr int kPatchH = kTileH + 2;
   static constexpr int kPatchW = kTileW + 2;
-  static constexpr int kPixStride = kChunkC + 1;  // odd: no bank conflicts
-  static constexpr int kWFloats = 9 * kChunkC * F;
+  // 16-byte pixels for cp.async; at F = 64 a warp's two 4 x 4 blocks read
+  // 4 pixels = 48 floats apart, in distinct banks
+  static constexpr int kPixStride = kChunkC + 4;
   static constexpr int kInFloats = kPatchH * kPatchW * kPixStride;
-  // channels of one thread that fall in one group, and such slots per thread
+  static constexpr int kWFloats = 9 * kChunkC * F;  // (tap, ci) rows of F
+  static constexpr int kBufFloats = kInFloats + kWFloats;
+  // a thread's 4 channels fall in 1 group, or in 2 at F = 16
   static constexpr int kGroupSize = F / kGroups;
-  static constexpr int kSlotChans = kGroupSize < kChanPerThread ? kGroupSize
-                                                                : kChanPerThread;
-  static constexpr int kSlots = kChanPerThread / kSlotChans;
-  static constexpr size_t kStatOffset =
-      align16((size_t)(kWFloats + kInFloats) * sizeof(float));
-  static constexpr size_t kSmemBytes =
-      kStatOffset + (size_t)kWarps * kCoGroups * kSlots * 2 * sizeof(double);
-  static_assert(kTileH * kTileW == kPixGroups * kPixPerThread, "tile");
-  static_assert(F % kChunkC == 0, "F");
+  static constexpr int kSlotChans = kGroupSize < 4 ? kGroupSize : 4;
+  static constexpr int kSlots = 4 / kSlotChans;
+  static constexpr int kWarpCo = kCoGroups < 32 ? kCoGroups : 32;  // in a warp
+  static constexpr size_t kStatOffset = 2 * (size_t)kBufFloats * sizeof(float);
+  static constexpr size_t kGnOffset =  // GN_IN: the image's GN1 by channel
+      kStatOffset + (size_t)kWarps * kWarpCo * kSlots * 2 * sizeof(double);
+  static constexpr size_t kSmemBytes = kGnOffset + (size_t)F * sizeof(float4);
+  static_assert(kTileH * kTileW == kPixGroups * 16, "tile");
+  static_assert(F % kChunkC == 0 && kChunkC % 4 == 0 && kBufFloats % 4 == 0, "F");
 };
 
 // out[b, y, x, :] = sum_{tap, ci} act(in[b, y+di-1, x+dj-1, ci]) w[tap, ci, :]
-// with act = identity (GN_IN false) or round(relu(GN(c))) (GN_IN true),
-// zero outside the image. Then, if stat_partials: per-(tile, group) fp64
-// sums of out and out^2; if add: out += add.
-template <int F, typename Tin, bool GN_IN, bool ROUND>
-__global__ void __launch_bounds__(kThreads)
-conv_kernel(const Tin* __restrict__ in, const float* __restrict__ w,
+// with act = identity (GN_IN false) or relu(GN(c)) (GN_IN true), zero
+// outside the image. Then, if stat_partials: per-(tile, group) fp64 sums
+// of out and out^2; if add: out += add. A thread owns a 4 x 4 pixel block
+// x 4 channels; per input channel it holds the 9 taps' weights in
+// registers and reads its (6 x 6) activations once, row by row: 45 loads
+// per 576 FMA. Two blocks an SM (<= 128 registers) at F >= 32: 79, 71 and
+// 97 KB of shared memory at F = 32, 64 and 128. At F = 16 the tile is 64 x
+// 16 pixels and takes 124.5 KB, so one block an SM, and its activation
+// reads meet 4-way bank conflicts (2-way at F = 32); the model's width is
+// 64.
+template <int F, bool GN_IN>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_kernel(const float* __restrict__ in, const float* __restrict__ w,
             const float* __restrict__ gn_stats, const float* __restrict__ gn_s,
             const float* __restrict__ gn_b, int H, int W,
             float* __restrict__ out, const float* __restrict__ add,
             double* __restrict__ stat_partials) {
   using S = ConvShape<F>;
-  float* s_w = reinterpret_cast<float*>(tower_smem);
-  float* s_in = s_w + S::kWFloats;
+  constexpr int kChunks = F / kChunkC;
+  float* s_buf = reinterpret_cast<float*>(tower_smem);
   double* s_stat = reinterpret_cast<double*>(tower_smem + S::kStatOffset);
+  float4* s_gn = reinterpret_cast<float4*>(tower_smem + S::kGnOffset);
 
   const int tid = threadIdx.x;
   const int co_grp = tid % S::kCoGroups;
   const int pg = tid / S::kCoGroups;
-  const int prow = pg / 4;
-  const int pcol = pg % 4;  // pixels pcol, pcol + 4, pcol + 8, pcol + 12
-  const int co0 = co_grp * kChanPerThread;
+  const int by = pg / 4 * 4;  // the thread's 4 x 4 block in the tile
+  const int bx = pg % 4 * 4;
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * S::kTileH;
   const int x0 = blockIdx.x * kTileW;
   const int nG = gridDim.z * kGroups;  // stats: [mean(B*G), inv(B*G)]
 
-  float acc[kPixPerThread][kChanPerThread];
-#pragma unroll
-  for (int k = 0; k < kPixPerThread; ++k)
-#pragma unroll
-    for (int j = 0; j < kChanPerThread; ++j) acc[k][j] = 0.f;
-
-  for (int ci0 = 0; ci0 < F; ci0 += kChunkC) {
-    __syncthreads();  // the previous chunk is consumed
-    // the 9 taps' (16, F) weight slices
-    for (int i = tid; i < S::kWFloats / 4; i += kThreads) {
-      const int e = i * 4;
-      const int tap = e / (kChunkC * F);
-      const int r = e - tap * (kChunkC * F);
-      reinterpret_cast<float4*>(s_w)[i] = *reinterpret_cast<const float4*>(
-          w + ((int64_t)tap * F + ci0) * F + r);
+  // input channels [ci0, ci0 + kChunkC): the patch, and the taps' rows of w
+  auto stage = [&](int ci0, float* s) {
+    copy_rect<F, kChunkC, S::kPatchH, S::kPatchW, S::kPixStride, kThreads>(
+        in, b, H, W, y0 - 1, x0 - 1, ci0, s);
+    float* sw = s + S::kInFloats;
+    constexpr int kRowVec = F / 4;
+    for (int i = tid; i < 9 * kChunkC * kRowVec; i += kThreads) {
+      const int r = i / kRowVec;  // tap * kChunkC + ci
+      const int tap = r / kChunkC;
+      const int c = (i - r * kRowVec) * 4;
+      cp_async_16(sw + r * F + c, w + ((int64_t)tap * F + ci0 + r - tap * kChunkC) * F + c);
     }
-    // the (tile + halo) x 16 input channels, activation applied
-    for (int i = tid; i < S::kPatchH * S::kPatchW * kChunkC; i += kThreads) {
-      const int pix = i / kChunkC;
-      const int ci = i - pix * kChunkC;
-      const int py = pix / S::kPatchW;
-      const int px = pix - py * S::kPatchW;
-      const int gy = y0 - 1 + py;
-      const int gx = x0 - 1 + px;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const int c = ci0 + ci;
-        v = to_f(in[(((int64_t)b * H + gy) * W + gx) * F + c]);
-        if (GN_IN) {
-          const int g = b * kGroups + c / S::kGroupSize;
-          v = fmaxf(gn_affine(v, gn_stats[g], gn_stats[nG + g], gn_s[c],
-                              gn_b[c]), 0.f);
-          if (ROUND) v = round_bf16(v);
-        }
-      }
-      s_in[pix * S::kPixStride + ci] = v;
+  };
+  // the chunk in buffer s, once this thread's copies have landed
+  auto activate = [&](int ci0, float* s) {
+    cp_async_wait<0>();
+    if (GN_IN)
+      gn_relu_rect<kChunkC, S::kPatchH, S::kPatchW, S::kPixStride, kThreads>(
+          s, [&](int c) { return s_gn[c]; }, H, W, y0 - 1, x0 - 1, ci0);
+  };
+  if (GN_IN) {  // uniform over the block
+    for (int c = tid; c < F; c += kThreads) {
+      const int g = b * kGroups + c / S::kGroupSize;
+      s_gn[c] = make_float4(gn_stats[g], gn_stats[nG + g], gn_s[c], gn_b[c]);
     }
     __syncthreads();
+  }
 
+  float acc[4][4][4];  // [row][column][channel]
+#pragma unroll
+  for (int y = 0; y < 4; ++y)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[y][x][c] = 0.f;
+
+  stage(0, s_buf);
+  cp_async_commit();
+  activate(0, s_buf);
 #pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int di = tap / 3;
-      const int dj = tap - di * 3;
-      const float* a_base =
-          s_in + ((prow + di) * S::kPatchW + pcol + dj) * S::kPixStride;
-      const float* w_base = s_w + tap * kChunkC * F + co0;
+  for (int k = 0; k < kChunks; ++k) {
+    float* s = s_buf + (k % 2) * S::kBufFloats;
+    float* next = s_buf + ((k + 1) % 2) * S::kBufFloats;
+    __syncthreads();  // chunk k in place; the other buffer (k - 1) consumed
+    if (k + 1 < kChunks) {  // the next chunk, in flight during this one
+      stage((k + 1) * kChunkC, next);
+      cp_async_commit();
+    }
+    const float* a_base = s + (by * S::kPatchW + bx) * S::kPixStride;
+    const float* w_base = s + S::kInFloats + 4 * co_grp;
+#pragma unroll 1
+    for (int ci = 0; ci < kChunkC; ++ci) {
+      float wv[9][4];
 #pragma unroll
-      for (int ci = 0; ci < kChunkC; ++ci) {
-        const float4 wa = *reinterpret_cast<const float4*>(w_base + ci * F);
-        const float4 wb = *reinterpret_cast<const float4*>(w_base + ci * F + 4);
-        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+      for (int tap = 0; tap < 9; ++tap) {
+        const float4 q = *reinterpret_cast<const float4*>(w_base + (tap * kChunkC + ci) * F);
+        wv[tap][0] = q.x;
+        wv[tap][1] = q.y;
+        wv[tap][2] = q.z;
+        wv[tap][3] = q.w;
+      }
 #pragma unroll
-        for (int k = 0; k < kPixPerThread; ++k) {
-          const float a = a_base[4 * k * S::kPixStride + ci];
+      for (int r = 0; r < 6; ++r) {  // patch row r feeds output rows r - di
+        float a[6];
 #pragma unroll
-          for (int j = 0; j < kChanPerThread; ++j) acc[k][j] += a * wv[j];
+        for (int p = 0; p < 6; ++p)
+          a[p] = a_base[(r * S::kPatchW + p) * S::kPixStride + ci];
+#pragma unroll
+        for (int di = 0; di < 3; ++di) {
+          if (r - di < 0 || r - di > 3) continue;
+#pragma unroll
+          for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                acc[r - di][x][c] += a[x + dj] * wv[di * 3 + dj][c];
         }
       }
     }
+    if (k + 1 < kChunks) activate((k + 1) * kChunkC, next);
   }
 
   // epilogue: store, and the group sums of this tile
   double st[S::kSlots][2];
 #pragma unroll
   for (int q = 0; q < S::kSlots; ++q) st[q][0] = st[q][1] = 0.0;
-  const int y = y0 + prow;
+  const int co = 4 * co_grp;
 #pragma unroll
-  for (int k = 0; k < kPixPerThread; ++k) {
-    const int x = x0 + pcol + 4 * k;
-    if (y < H && x < W) {
-      const int64_t off = (((int64_t)b * H + y) * W + x) * F + co0;
-      float v[kChanPerThread];
+  for (int yy = 0; yy < 4; ++yy) {
 #pragma unroll
-      for (int j = 0; j < kChanPerThread; ++j) {
-        v[j] = acc[k][j];
-        if (add != nullptr) v[j] += add[off + j];
-        st[j / S::kSlotChans][0] += (double)v[j];
-        st[j / S::kSlotChans][1] += (double)v[j] * (double)v[j];
+    for (int xx = 0; xx < 4; ++xx) {
+      const int y = y0 + by + yy;
+      const int x = x0 + bx + xx;
+      if (y < H && x < W) {
+        const int64_t off = (((int64_t)b * H + y) * W + x) * F + co;
+        float v[4] = {acc[yy][xx][0], acc[yy][xx][1], acc[yy][xx][2], acc[yy][xx][3]};
+        if (add != nullptr) {
+          const float4 r = *reinterpret_cast<const float4*>(add + off);
+          v[0] += r.x;
+          v[1] += r.y;
+          v[2] += r.z;
+          v[3] += r.w;
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          st[c / S::kSlotChans][0] += (double)v[c];
+          st[c / S::kSlotChans][1] += (double)v[c] * (double)v[c];
+        }
+        *reinterpret_cast<float4*>(out + off) = make_float4(v[0], v[1], v[2], v[3]);
       }
-      reinterpret_cast<float4*>(out + off)[0] = make_float4(v[0], v[1], v[2], v[3]);
-      reinterpret_cast<float4*>(out + off)[1] = make_float4(v[4], v[5], v[6], v[7]);
     }
   }
   if (stat_partials == nullptr) return;  // uniform over the block
 
   // threads of one warp with the same co_grp differ in the lane bits above
-  // log2(kCoGroups): reduce over those, in a fixed butterfly order
+  // log2(kWarpCo): reduce over those, in a fixed butterfly order
 #pragma unroll
   for (int q = 0; q < S::kSlots; ++q) {
 #pragma unroll
-    for (int m = S::kCoGroups; m < 32; m *= 2) {
+    for (int m = S::kWarpCo; m < 32; m *= 2) {
       st[q][0] += __shfl_xor_sync(0xffffffffu, st[q][0], m);
       st[q][1] += __shfl_xor_sync(0xffffffffu, st[q][1], m);
     }
   }
   const int lane = tid % 32;
   const int warp = tid / 32;
-  if (lane < S::kCoGroups) {  // lane == co_grp here
+  if (lane < S::kWarpCo) {  // co_grp == lane here
 #pragma unroll
     for (int q = 0; q < S::kSlots; ++q) {
-      double* d = s_stat + ((warp * S::kCoGroups + lane) * S::kSlots + q) * 2;
+      double* d = s_stat + ((warp * S::kWarpCo + lane) * S::kSlots + q) * 2;
       d[0] = st[q][0];
       d[1] = st[q][1];
     }
@@ -337,11 +456,11 @@ conv_kernel(const Tin* __restrict__ in, const float* __restrict__ w,
   if (tid < kGroups) {
     double s = 0.0, ss = 0.0;
     for (int wp = 0; wp < kWarps; ++wp)
-      for (int c = 0; c < S::kCoGroups; ++c)
+      for (int l = 0; l < S::kWarpCo; ++l)
         for (int q = 0; q < S::kSlots; ++q) {
-          const int g = (c * kChanPerThread + q * S::kSlotChans) / S::kGroupSize;
-          if (g != tid) continue;
-          const double* d = s_stat + ((wp * S::kCoGroups + c) * S::kSlots + q) * 2;
+          // lane l holds co_grp l: kCoGroups divides 32
+          if ((4 * l + q * S::kSlotChans) / S::kGroupSize != tid) continue;
+          const double* d = s_stat + ((wp * S::kWarpCo + l) * S::kSlots + q) * 2;
           s += d[0];
           ss += d[1];
         }
@@ -529,94 +648,160 @@ gn_bwd_apply_kernel(const float* __restrict__ src, const float* __restrict__ c,
 
 // ------------------------------------------------------------ wgrad ----
 
-// partial[chunk, tap, ci, co] = sum over the chunk's pixels p of
-// act(in[p shifted by tap, ci]) * dc[p, co]; act as in conv_kernel.
-// Grid (chunks, 9); threads 16 x 16, each (F/16)^2 outputs.
-template <int F, typename Tin, bool GN_IN, bool ROUND>
-__global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const Tin* __restrict__ in, const float* __restrict__ gn_stats,
+template <int F>
+struct WgradShape {
+  static constexpr int kCB = F == 128 ? 32 : F;  // F_out a block
+  static constexpr int kSplits = F / kCB;
+  // a lane: one tap row di, its 3 taps x 4 F_in x 8 F_out (4c.. and
+  // kCB/2 + 4c..); where fewer than 32 lanes cover a tap row, lanes that
+  // split the tile rows
+  static constexpr int kCiGroups = F / 4;
+  static constexpr int kCoGroups = kCB / 8;
+  static constexpr int kLanes = kCiGroups * kCoGroups;
+  static constexpr int kPhases = kLanes < 32 ? 32 / kLanes : 1;
+  static constexpr int kThreads = 3 * kLanes * kPhases;  // 384 at F = 64, 128
+  static constexpr int kPatchH = kWgRows + 2;
+  static constexpr int kPatchW = kWgCols + 2;
+  static constexpr int kPatchFloats = kPatchH * kPatchW * F;
+  static constexpr int kBufFloats = kPatchFloats + kWgPix * kCB;
+  static constexpr size_t kSmemBytes = 2 * (size_t)kBufFloats * sizeof(float);
+  static_assert(kThreads % 32 == 0 && kWgRows % kPhases == 0, "lanes");
+};
+
+// partial[chunk, tap, ci, s * kCB : (s + 1) * kCB] = sum over the chunk's
+// pixels p of act(in[p shifted by tap, ci]) * dc[p, co]; act as in
+// conv_kernel. Grid (chunks, kSplits): block (c, s) walks 8 x 16 pixel
+// tiles [c * per_chunk, (c + 1) * per_chunk) of the (B, H/8, W/16) grid.
+// A lane walks each tile row of its phase from left to right: the input
+// pixels its three taps read at x are those at x - 1 of the step before,
+// so a step loads one float4 of input and two of dc for 96 FMA. 12 warps
+// an SM (<= 168 registers); 158 KB of shared memory at F = 64, 217 KB at
+// F = 128.
+template <int F, bool GN_IN>
+__global__ void __launch_bounds__(WgradShape<F>::kThreads, 384 / WgradShape<F>::kThreads)
+wgrad_kernel(const float* __restrict__ in, const float* __restrict__ gn_stats,
              const float* __restrict__ gn_s, const float* __restrict__ gn_b,
-             const float* __restrict__ dc, int B, int H, int W, int chunk,
+             const float* __restrict__ dc, int B, int H, int W, int per_chunk,
              float* __restrict__ partial) {
-  constexpr int MT = F / 16;
-  float* s_a = reinterpret_cast<float*>(tower_smem);
-  float* s_d = s_a + kWgradPix * F;
-  int* s_src = reinterpret_cast<int*>(s_d + kWgradPix * F);  // -1: zero
-  int* s_img = s_src + kWgradPix;
-  int* s_pix = s_img + kWgradPix;                            // -1: none
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int tap = blockIdx.y;
-  const int di = tap / 3 - 1;
-  const int dj = tap % 3 - 1;
-  const int hw = H * W;
-  const int total = B * hw;
-  const int nG = B * kGroups;
-  const int p_begin = blockIdx.x * chunk;
-  const int p_end = min(p_begin + chunk, total);
+  using S = WgradShape<F>;
+  float* s_buf = reinterpret_cast<float*>(tower_smem);
+  const int t_id = threadIdx.x;
+  const int co_grp = t_id % S::kCoGroups;
+  const int ci_grp = t_id / S::kCoGroups % S::kCiGroups;
+  const int phase = t_id / S::kLanes % S::kPhases;
+  const int di = t_id / (S::kLanes * S::kPhases);
+  const int co_base = blockIdx.y * S::kCB;
+  const int tiles_x = (W + kWgCols - 1) / kWgCols;
+  const int tiles_y = (H + kWgRows - 1) / kWgRows;
+  const int t_begin = blockIdx.x * per_chunk;
+  const int t_end = min(t_begin + per_chunk, B * tiles_x * tiles_y);
 
-  float acc[MT][MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < MT; ++j) acc[i][j] = 0.f;
-
-  for (int p0 = p_begin; p0 < p_end; p0 += kWgradPix) {
-    __syncthreads();  // the previous step is consumed
-    if (tid < kWgradPix) {
-      const int p = p0 + tid;
-      int src = -1, img = 0, pix = -1;
-      if (p < p_end) {
-        pix = p;
-        img = p / hw;
-        const int rem = p - img * hw;
-        const int y = rem / W + di;
-        const int x = rem - (rem / W) * W + dj;
-        if (y >= 0 && y < H && x >= 0 && x < W) src = (img * H + y) * W + x;
-      }
-      s_src[tid] = src;
-      s_img[tid] = img;
-      s_pix[tid] = pix;
+  // tile t: its image and the pixel at its top left
+  auto origin = [&](int t, int& b, int& y0, int& x0) {
+    b = t / (tiles_x * tiles_y);
+    const int r = t - b * tiles_x * tiles_y;
+    y0 = r / tiles_x * kWgRows;
+    x0 = r % tiles_x * kWgCols;
+  };
+  // tile t's (10 x 18) x F input patch and its 128 x kCB slice of dc
+  auto stage = [&](int t, float* s) {
+    int b, y0, x0;
+    origin(t, b, y0, x0);
+    copy_rect<F, F, S::kPatchH, S::kPatchW, F, S::kThreads>(in, b, H, W, y0 - 1,
+                                                            x0 - 1, 0, s);
+    copy_rect<F, S::kCB, kWgRows, kWgCols, S::kCB, S::kThreads>(
+        dc, b, H, W, y0, x0, co_base, s + S::kPatchFloats);
+  };
+  // tile t in buffer s, once this thread's copies have landed
+  auto activate = [&](int t, float* s) {
+    cp_async_wait<0>();
+    if (GN_IN) {
+      int b, y0, x0;
+      origin(t, b, y0, x0);
+      auto gn = [&](int c) {
+        const int g = b * kGroups + c / (F / kGroups);
+        return make_float4(gn_stats[g], gn_stats[B * kGroups + g], gn_s[c], gn_b[c]);
+      };
+      gn_relu_rect<F, S::kPatchH, S::kPatchW, F, S::kThreads>(s, gn, H, W, y0 - 1,
+                                                              x0 - 1, 0);
     }
-    __syncthreads();
-    for (int i = tid; i < kWgradPix * F; i += kThreads) {
-      const int pp = i / F;
-      const int ch = i - pp * F;
-      const int src = s_src[pp];
-      const int pix = s_pix[pp];
-      float a = 0.f;
-      if (src >= 0) {
-        a = to_f(in[(int64_t)src * F + ch]);
-        if (GN_IN) {
-          const int g = s_img[pp] * kGroups + ch / (F / kGroups);
-          a = fmaxf(gn_affine(a, gn_stats[g], gn_stats[nG + g], gn_s[ch],
-                              gn_b[ch]), 0.f);
-          if (ROUND) a = round_bf16(a);
+  };
+
+  float acc[3][4][8];  // [dj][F_in][F_out]
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[j][i][c] = 0.f;
+
+  if (t_begin < t_end) {
+    stage(t_begin, s_buf);
+    cp_async_commit();
+    activate(t_begin, s_buf);
+  }
+#pragma unroll 1
+  for (int t = t_begin; t < t_end; ++t) {
+    float* s = s_buf + ((t - t_begin) % 2) * S::kBufFloats;
+    float* next = s_buf + ((t + 1 - t_begin) % 2) * S::kBufFloats;
+    __syncthreads();  // tile t in place; the other buffer (t - 1) consumed
+    if (t + 1 < t_end) {  // the next tile, in flight during this one
+      stage(t + 1, next);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int y = phase; y < kWgRows; y += S::kPhases) {
+      const float* ar = s + (y + di) * S::kPatchW * F + 4 * ci_grp;
+      const float* dr = s + S::kPatchFloats + y * kWgCols * S::kCB + 4 * co_grp;
+      float4 win[3];  // input pixels x, x + 1, x + 2 of the patch row
+      win[0] = *reinterpret_cast<const float4*>(ar);
+      win[1] = *reinterpret_cast<const float4*>(ar + F);
+#pragma unroll
+      for (int x = 0; x < kWgCols; ++x) {
+        win[2] = *reinterpret_cast<const float4*>(ar + (x + 2) * F);
+        const float4 d0 = *reinterpret_cast<const float4*>(dr + x * S::kCB);
+        const float4 d1 = *reinterpret_cast<const float4*>(dr + x * S::kCB + S::kCB / 2);
+        const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float av[4] = {win[j].x, win[j].y, win[j].z, win[j].w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[j][i][c] += av[i] * dv[c];
         }
+        win[0] = win[1];
+        win[1] = win[2];
       }
-      s_a[i] = a;
-      s_d[i] = pix >= 0 ? dc[(int64_t)pix * F + ch] : 0.f;
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int pp = 0; pp < kWgradPix; ++pp) {
-      float av[MT], dv[MT];
+    if (t + 1 < t_end) activate(t + 1, next);
+  }
+
+  // the phases' sums, in a fixed butterfly order (lanes differ above
+  // log2(kLanes))
 #pragma unroll
-      for (int i = 0; i < MT; ++i) av[i] = s_a[pp * F + ty + 16 * i];
+  for (int m = S::kLanes; m < S::kLanes * S::kPhases; m *= 2)
 #pragma unroll
-      for (int j = 0; j < MT; ++j) dv[j] = s_d[pp * F + tx + 16 * j];
+    for (int j = 0; j < 3; ++j)
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < MT; ++j) acc[i][j] += av[i] * dv[j];
+        for (int c = 0; c < 8; ++c)
+          acc[j][i][c] += __shfl_xor_sync(0xffffffffu, acc[j][i][c], m);
+  if (phase != 0) return;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    float* out = partial + ((int64_t)blockIdx.x * 9 + di * 3 + j) * F * F +
+                 co_base + 4 * co_grp;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* o = out + (4 * ci_grp + i) * F;
+      *reinterpret_cast<float4*>(o) =
+          make_float4(acc[j][i][0], acc[j][i][1], acc[j][i][2], acc[j][i][3]);
+      *reinterpret_cast<float4*>(o + S::kCB / 2) =
+          make_float4(acc[j][i][4], acc[j][i][5], acc[j][i][6], acc[j][i][7]);
     }
   }
-  float* out = partial + ((int64_t)blockIdx.x * 9 + tap) * F * F;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < MT; ++j) out[(ty + 16 * i) * F + tx + 16 * j] = acc[i][j];
 }
 
 // dw[e] = sum over chunks, in chunk order, of partial[chunk, e].
@@ -726,7 +911,8 @@ struct TcConvShape {
   static constexpr size_t kStageBytes = kTapOffset + 2 * kTapElems * sizeof(bf16);
   static constexpr int kOutStride = F + 4;  // the f32 tile of the epilogue
   static constexpr size_t kOutBytes = (size_t)kTcPix * kOutStride * sizeof(float);
-  // the epilogue's thread layout, as ConvShape's
+  // the epilogue's thread layout: pixel groups x channel groups of 8
+  // adjacent channels
   static constexpr int kCoGroups = F / kChanPerThread;
   static constexpr int kPixGroups = kThreads / kCoGroups;
   static constexpr int kPixPerThread = kTcPix / kPixGroups;
@@ -1060,15 +1246,19 @@ int red_chunks(int H, int W) {
   return c < kMaxRedChunks ? c : kMaxRedChunks;
 }
 
-// pixels per wgrad chunk (a multiple of kWgradPix) and the chunk count
-void wgrad_split(int B, int H, int W, int* chunk, int* chunks) {
-  const int total = B * H * W;
-  int n = (total + kWgradPix - 1) / kWgradPix;
-  if (n > kMaxWgradChunks) n = kMaxWgradChunks;
-  int per = (total + n - 1) / n;
-  per = (per + kWgradPix - 1) / kWgradPix * kWgradPix;
-  *chunk = per;
-  *chunks = (total + per - 1) / per;
+// `tiles` pixel tiles in at most max_chunks chunks: tiles per chunk and
+// the chunk count
+void split_tiles(int tiles, int max_chunks, int* per, int* chunks) {
+  const int n = tiles < max_chunks ? tiles : max_chunks;
+  *per = (tiles + n - 1) / n;
+  *chunks = (tiles + *per - 1) / *per;
+}
+
+// the f32 wgrad's 8 x 16 pixel tiles
+void wgrad_split(int B, int H, int W, int* per, int* chunks) {
+  const int tiles =
+      B * ((H + kWgRows - 1) / kWgRows) * ((W + kWgCols - 1) / kWgCols);
+  split_tiles(tiles, kMaxWgradChunks, per, chunks);
 }
 
 dim3 elementwise_grid(int B, int64_t hwf) {
@@ -1077,13 +1267,13 @@ dim3 elementwise_grid(int B, int64_t hwf) {
   return dim3((unsigned)x, B);
 }
 
-template <int F, typename Tin, bool GN_IN, bool ROUND>
-void launch_conv(const Tin* in, const float* w, const float* gn_stats,
+template <int F, bool GN_IN>
+void launch_conv(const float* in, const float* w, const float* gn_stats,
                  const float* gn_s, const float* gn_b, int B, int H, int W,
                  float* out, const float* add, double* stat_partials,
                  cudaStream_t st) {
   constexpr size_t smem = ConvShape<F>::kSmemBytes;
-  auto kernel = conv_kernel<F, Tin, GN_IN, ROUND>;
+  auto kernel = conv_kernel<F, GN_IN>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   kernel<<<conv_grid<F>(B, H, W), kThreads, smem, st>>>(
@@ -1097,18 +1287,27 @@ void launch_stats(const double* partials, int B, int tiles, double count,
                                                             count, stats);
 }
 
-template <int F, typename Tin, bool GN_IN, bool ROUND>
-void launch_wgrad(const Tin* in, const float* gn_stats, const float* gn_s,
-                  const float* gn_b, const float* dc, int B, int H, int W,
-                  float* partial, float* dw, cudaStream_t st) {
-  int chunk, chunks;
-  wgrad_split(B, H, W, &chunk, &chunks);
-  const size_t smem = 2 * kWgradPix * F * sizeof(float) + 3 * kWgradPix * sizeof(int);
-  wgrad_kernel<F, Tin, GN_IN, ROUND><<<dim3(chunks, 9), kThreads, smem, st>>>(
-      in, gn_stats, gn_s, gn_b, dc, B, H, W, chunk, partial);
+void launch_wgrad_reduce(const float* partial, int chunks, int F, float* dw,
+                         cudaStream_t st) {
   const int n = 9 * F * F;
   wgrad_reduce_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       partial, chunks, n, dw);
+}
+
+template <int F, bool GN_IN>
+void launch_wgrad(const float* in, const float* gn_stats, const float* gn_s,
+                  const float* gn_b, const float* dc, int B, int H, int W,
+                  float* partial, float* dw, cudaStream_t st) {
+  constexpr size_t smem = WgradShape<F>::kSmemBytes;
+  int per, chunks;
+  wgrad_split(B, H, W, &per, &chunks);
+  auto kernel = wgrad_kernel<F, GN_IN>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<dim3(chunks, WgradShape<F>::kSplits), WgradShape<F>::kThreads, smem,
+             st>>>(
+      in, gn_stats, gn_s, gn_b, dc, B, H, W, per, partial);
+  launch_wgrad_reduce(partial, chunks, F, dw, st);
 }
 
 dim3 tc_conv_grid(int B, int H, int W) {
@@ -1122,10 +1321,7 @@ int tc_conv_tiles(int H, int W) {
 
 // 8 x 16 pixel tiles per wgrad_tc chunk, and the chunk count
 void tc_wgrad_split(int B, int H, int W, int* per, int* chunks) {
-  const int tiles = B * tc_conv_tiles(H, W);
-  const int n = tiles < kMaxTcChunks ? tiles : kMaxTcChunks;
-  *per = (tiles + n - 1) / n;
-  *chunks = (tiles + *per - 1) / *per;
+  split_tiles(B * tc_conv_tiles(H, W), kMaxTcChunks, per, chunks);
 }
 
 template <int F, typename Tin, bool GN_IN>
@@ -1153,9 +1349,7 @@ void launch_wgrad_tc(const Tin* in, const float* gn_stats, const float* gn_s,
                        (int)smem);
   kernel<<<dim3(chunks, TcWgradShape<F>::kSplits), kThreads, smem, st>>>(
       in, gn_stats, gn_s, gn_b, dc, B, H, W, per, partial);
-  const int n = 9 * F * F;
-  wgrad_reduce_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      partial, chunks, n, dw);
+  launch_wgrad_reduce(partial, chunks, F, dw, st);
 }
 
 // The tiles by compute dtype T: f32 on the CUDA cores, bf16 on the tensor
@@ -1171,8 +1365,8 @@ void conv(const Tin* in, const T* w, const float* gn_stats, const float* gn_s,
     launch_conv_tc<F, Tin, GN_IN>(in, w, gn_stats, gn_s, gn_b, B, H, W, out,
                                   add, stat_partials, st);
   } else {
-    launch_conv<F, Tin, GN_IN, false>(in, w, gn_stats, gn_s, gn_b, B, H, W,
-                                      out, add, stat_partials, st);
+    launch_conv<F, GN_IN>(in, w, gn_stats, gn_s, gn_b, B, H, W, out, add,
+                          stat_partials, st);
   }
 }
 
@@ -1184,8 +1378,8 @@ void wgrad(const Tin* in, const float* gn_stats, const float* gn_s,
     launch_wgrad_tc<F, Tin, GN_IN>(in, gn_stats, gn_s, gn_b, dc, B, H, W,
                                    partial, dw, st);
   } else {
-    launch_wgrad<F, Tin, GN_IN, false>(in, gn_stats, gn_s, gn_b, dc, B, H, W,
-                                       partial, dw, st);
+    launch_wgrad<F, GN_IN>(in, gn_stats, gn_s, gn_b, dc, B, H, W, partial, dw,
+                           st);
   }
 }
 
@@ -1347,8 +1541,8 @@ int tower_partials_doubles(int B, int H, int W, int F) {
 }
 
 int tower_wgrad_floats(int B, int H, int W, int F) {
-  int chunk, chunks, per, tc_chunks;
-  wgrad_split(B, H, W, &chunk, &chunks);
+  int per, chunks, tc_chunks;
+  wgrad_split(B, H, W, &per, &chunks);
   tc_wgrad_split(B, H, W, &per, &tc_chunks);
   return (chunks > tc_chunks ? chunks : tc_chunks) * 9 * F * F;
 }

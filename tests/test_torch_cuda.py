@@ -107,11 +107,13 @@ def _tower_inputs(shape, n, margin, device):
 @pytest.mark.cuda
 class TestCudaTower:
     """K4 and K5 against the plain version and its autograd, at shapes whose
-    H and W are not multiples of the conv tile; F=128 is the bf16 tiles'
-    largest shared-memory footprint (118 KB a conv block) and the wgrad
-    tile's eight-way F_out split. Bars: max|Δ| ≤ 1e-3·max
-    (f32) and 2e-2·max (bf16) for y, and for every gradient where the ReLU
-    never clips (``margin``). With the JAX tests' GN values the ReLU clips,
+    H and W are not multiples of the conv tiles (f32: 16 x 16 pixels at
+    F=64, 8 x 16 at F=128; bf16: 8 x 16) nor of the wgrad tiles' 8 x 16;
+    F=128 is the tiles' largest shared-memory footprint (118 KB a bf16
+    conv block, 217 KB an f32 wgrad block) and their F_out split. Bars:
+    max|Δ| ≤ 1e-3·max (f32) and 2e-2·max (bf16) for y, and for every
+    gradient where the ReLU never clips (``margin``). With the JAX tests'
+    GN values the ReLU clips,
     and a value within rounding of a kink can fall on one side in the
     kernel and on the other in the plain version (other f32 summation
     orders), where the gradient jumps: there the gradients are held to
@@ -119,7 +121,7 @@ class TestCudaTower:
 
     @pytest.mark.parametrize("margin", [True, False], ids=["margin", "clips"])
     @pytest.mark.parametrize("shape,n", [((2, 9, 21, 16), 2), ((1, 16, 32, 64), 3),
-                                         ((1, 12, 20, 128), 2)])
+                                         ((1, 12, 20, 128), 2), ((3, 17, 35, 64), 2)])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_tower_kernels_match_plain(self, cuda_device, shape, n, dtype, margin):
         from srgan_tpu_torch.ops.cuda import residual_tower_kernel as tk

@@ -92,6 +92,12 @@ def _inputs(shape, n, margin=False, seed=0):
     ((1, 7, 19, 32), 2, "bfloat16", False),
     ((1, 6, 18, 64), 1, "bfloat16", True),
     ((1, 5, 9, 128), 1, "bfloat16", True),
+    # the f32 tiles at their flagship width and at F=128: H and W ragged
+    # for the conv tile (16 x 16 at F=64, 8 x 16 at F=128) and the wgrad's
+    # 8 x 16 tiles, B*H*W not a multiple of a tile
+    ((1, 18, 19, 64), 2, "float32", True),
+    ((1, 18, 19, 64), 1, "float32", False),
+    ((1, 10, 21, 128), 1, "float32", True),
 ])
 def test_tower_source_matches_plain(emulated_lib, shape, n, dtype, margin):
     cd = getattr(torch, dtype)
