@@ -5,11 +5,18 @@
 Phases, each of which must pass (any failure exits non-zero):
 
   1. build every CUDA source of the port (one ``nvcc`` per source, in
-     parallel) and print the card's name and power limit;
+     parallel), print the ``ptxas`` registers, shared memory and spills of
+     every kernel (one summary line for each band kernel of K2 and K3 at
+     C=3) and the card's name and power limit;
   2. hold each kernel of the training path against its plain PyTorch
-     version at the flagship loss shape (12, 512, 1024, 3) float32, TF32
-     off, and time both with CUDA events (the median of 10 windows of 20
-     calls), kernel and plain in turns;
+     version (float64 for K2 and K3: the TV sum cancels) at the flagship
+     loss shape (12, 512, 1024, 3) float32, TF32 off, on inputs whose TV
+     term is live; check that the shape takes K2's and K3's vector path
+     and that two calls of each give the same bits; time each kernel and
+     its plain version with CUDA events (the median of 10 windows of 20
+     calls), kernel and plain in turns, and each kernel and finalise
+     launch by its device time under the profiler, with the GB/s and the
+     share of the bound that gives;
   3. hold one pixel step on the card (kernels) against the same step on
      the CPU (plain versions) at a small size, same weights and batch;
   4. train the flagship configuration (F=64, 16 blocks, 4x subpixel head,
@@ -17,7 +24,8 @@ Phases, each of which must pass (any failure exits non-zero):
      epoch of 3 steps through ``Trainer.train_epoch`` on the device-cache
      path, then ``compute_score`` on one validation batch. The launch
      counts are zeroed just before the counted epoch and read just after:
-     K1, K2 and K3 must each have launched once per step;
+     K1, K2 and K3 must each have launched once per step, K2 and K3 on
+     their vector path;
   5. the residual tower (``residual_tower``, kernels K4 and K5) at the
      flagship tower shape x (12, 128, 256, 64), N=16, in f32 and bf16:
      K4 and K5 against the plain version and its autograd, launch counts
@@ -63,10 +71,15 @@ LOSS_SHAPE = (12, 512, 1024, 3)
 # K3 edge map + normalise (31), DIFF + sign + (1-e) field (20), the DIFF
 # transpose (18), the edge term (5) and the sum.
 OPS_PER_ELEMENT = {"edge_stats": 28, "loss_sums": 57, "loss_grad": 75}
-LOSS_KERNEL_SYMBOLS = (
-    "edge_stats_kernel", "edge_stats_finalize", "loss_sums_kernel",
-    "loss_sums_finalize", "grad_kernel",
-)
+LOSS_KERNEL_RE = re.compile(
+    r"\b(edge_stats_kernel|edge_stats_finalize|loss_sums_kernel|loss_sums_finalize"
+    r"|grad_kernel)\b")
+# each wrapper's kernel and its finalise launch
+LOSS_KERNELS = {
+    "edge_stats": ("edge_stats_kernel", "edge_stats_finalize"),
+    "loss_sums": ("loss_sums_kernel", "loss_sums_finalize"),
+    "loss_grad": ("grad_kernel", None),
+}
 TPU_KERNELS = {
     "edge_stats": "srgan_tpu/ops/pallas/recon_loss_kernel.py:114",
     "loss_sums": "srgan_tpu/ops/pallas/recon_loss_kernel.py:144",
@@ -108,22 +121,91 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs() / b.abs().clamp_min(1e-30))
 
 
+def loss_inputs(dev):
+    """hr black with one bright square an image, sr rough and independent,
+    both on a 1/256 grid. Values on the grid keep every stencil sum exact in
+    fp32, so sign(hr - sr) and sign(DIFF*sr) agree bit for bit between the
+    kernels and the plain version; with arbitrary floats a handful of the
+    18.9M signs near 0 may flip from summation order alone. The edges are
+    sparse, so the TV term is live (tv mean > 0) and so is its gradient."""
+    rng = np.random.default_rng(0)
+    b, h, w, c = LOSS_SHAPE
+    k = h // 6
+    hr_u8 = np.zeros(LOSS_SHAPE, np.uint8)
+    for i in range(b):
+        y, x = rng.integers(0, h - k), rng.integers(0, w - k)
+        hr_u8[i, y:y + k, x:x + k] = rng.integers(128, 256, c)
+    g = torch.Generator(device=dev).manual_seed(0)
+    sr_u8 = torch.randint(0, 256, LOSS_SHAPE, generator=g, device=dev)
+    return torch.from_numpy(hr_u8).to(dev).float() / 256.0, sr_u8.float() / 256.0
+
+
+def loss_device_times(fns: dict, reps: int = 20) -> dict:
+    """Device ms per launch of each loss kernel and finalise, from the
+    profiler, over ``reps`` calls of each wrapper: the wrappers' host cost
+    (which back-to-back CUDA-event windows may include) cannot hide them."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns.values():
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    by_kernel: dict = {}  # symbol -> [launches, device us]
+    for e in _device_events(prof):
+        m = LOSS_KERNEL_RE.search(e.name)
+        if m:
+            rec = by_kernel.setdefault(m.group(1), [0, 0.0])
+            rec[0] += 1
+            rec[1] += e.time_range.elapsed_us()
+    out = {}
+    for name, symbols in LOSS_KERNELS.items():
+        for sym in filter(None, symbols):
+            n, us = by_kernel.get(sym, (0, 0.0))
+            check(n == reps, f"profiler saw {n} launches of {sym}, expected {reps}")
+            out[sym] = us / n / 1e3
+    return out
+
+
+def ptxas_resources(report: str) -> dict:
+    """{mangled entry: (registers, smem bytes, spill store + load bytes)}
+    from ``nvcc -Xptxas -v`` output."""
+    out, name, spill = {}, None, 0
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name, spill = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name] = (int(m.group(1)), int(smem.group(1)) if smem else 0, spill)
+    return out
+
+
+def loss_ptxas(report: str) -> dict:
+    """The band kernels' resources at C=3, by (wrapper, path)."""
+    out = {}
+    for name, res in ptxas_resources(report).items():
+        m = re.search(r"\d+(loss_sums|grad)_kernelILi3ELb([01])E", name)
+        if m:
+            wrapper = "loss_sums" if m.group(1) == "loss_sums" else "loss_grad"
+            path = "vec" if m.group(2) == "1" else "scalar"
+            out[(wrapper, path)] = res
+            print(f"ptxas {m.group(1)}_kernel<3, {path}>: {res[0]} registers, "
+                  f"{res[1]} bytes smem, {res[2]} bytes spilled", flush=True)
+    check(set(out) == {(w, p) for w in ("loss_sums", "loss_grad")
+                       for p in ("vec", "scalar")},
+          f"ptxas report lacks band kernels: {sorted(out)}")
+    return out
+
+
 def kernel_phase(rk, dev) -> dict:
-    """Each kernel against its plain version on the same inputs."""
+    """Each kernel against its plain version on the same inputs; the path
+    the flagship shape takes, two calls bit for bit, times."""
     from srgan_tpu_torch.ops.recon_loss import (
         edge_importance_map,
         reconstruction_loss_with_edges,
     )
 
-    g = torch.Generator(device=dev).manual_seed(0)
-    # Values on a 1/256 grid keep every stencil sum exact in fp32, so
-    # sign(hr - sr) and sign(DIFF*sr) agree bit for bit between the kernel
-    # and cuDNN; with arbitrary floats a handful of the 18.9M signs near 0
-    # may flip from summation order alone.
-    hr_u8 = torch.randint(0, 256, LOSS_SHAPE, generator=g, device=dev)
-    noise = torch.randint(-12, 13, LOSS_SHAPE, generator=g, device=dev)
-    hr = hr_u8.float() / 256.0
-    sr = (hr_u8 + noise).clamp(0, 255).float() / 256.0
+    hr, sr = loss_inputs(dev)
     n = hr.numel()
     out = {}
 
@@ -139,29 +221,39 @@ def kernel_phase(rk, dev) -> dict:
         bytes=n * 4,
     )
 
-    # K1 + K2 against the whole plain loss
+    # K1 + K2 against the whole plain loss, in float64: the TV sum cancels,
+    # so two fp32 summation orders already differ by ~1e-4 relative
+    rk.reset_launches()
     e_k, tv_k = rk.loss_sums(hr, sr, st_k)
-    e_p, tv_p = reconstruction_loss_with_edges(hr, sr, edge_importance_map(hr))
+    hr64, sr64 = hr.double(), sr.double()
+    e_p, tv_p = reconstruction_loss_with_edges(hr64, sr64, edge_importance_map(hr64))
     torch.cuda.synchronize()
-    err2 = max(rel_err(e_k, e_p), rel_err(tv_k, tv_p))
+    check(float(st_k[3]) > 0, f"tv mean {float(st_k[3])} <= 0: the TV term is gated")
+    err2 = max(rel_err(e_k.double(), e_p), rel_err(tv_k.double(), tv_p))
     check(err2 <= 1e-4, f"K1+K2 (edge, tv) rel err {err2} > 1e-4")
     st_scratch = st_k.clone()
     out["loss_sums"] = dict(
-        max_abs_err=float(max((e_k - e_p).abs(), (tv_k - tv_p).abs())),
+        max_abs_err=float(max((e_k.double() - e_p).abs(), (tv_k.double() - tv_p).abs())),
         fns=(lambda: rk.loss_sums(hr, sr, st_k),
              lambda: rk.loss_sums_plain(hr, sr, st_scratch)),
         bytes=2 * n * 4,
     )
 
-    # K3 against autograd of the plain loss
-    sr_req = sr.clone().requires_grad_(True)
-    e, tv = reconstruction_loss_with_edges(hr, sr_req, edge_importance_map(hr))
+    # K3 against autograd of the plain loss, in float64
+    sr_req = sr64.clone().requires_grad_(True)
+    e, tv = reconstruction_loss_with_edges(hr64, sr_req, edge_importance_map(hr64))
     (g_ref,) = torch.autograd.grad(e + tv, sr_req)
+    del e, tv, sr_req, hr64, sr64
     one = torch.ones((), device=dev)
     dsr = rk.loss_grad(hr, sr, st_k, one, one)
     torch.cuda.synchronize()
-    err3 = float((dsr - g_ref).abs().max())
+    paths = dict(rk.paths)
+    check(paths == {"loss_sums_vec": 1, "loss_sums_scalar": 0, "loss_grad_vec": 1,
+                    "loss_grad_scalar": 0},
+          f"flagship shape: paths {paths}, expected the vector path")
+    err3 = float((dsr.double() - g_ref).abs().max())
     tol3 = 1e-3 * float(g_ref.abs().max())
+    del g_ref
     check(err3 <= tol3, f"K3 max|d dsr| {err3} > 1e-3 max|g| = {tol3}")
     out["loss_grad"] = dict(
         max_abs_err=err3,
@@ -169,6 +261,20 @@ def kernel_phase(rk, dev) -> dict:
              lambda: rk.loss_grad_plain(hr, sr, st_k, one, one)),
         bytes=3 * n * 4,
     )
+
+    # two calls bit for bit: fixed sum orders, no float atomics
+    st_a, st_b = st_k.clone(), st_k.clone()
+    sums = [rk.loss_sums(hr, sr, st) for st in (st_a, st_b)]
+    grads = [rk.loss_grad(hr, sr, st_k, one, one) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(sums[0], sums[1]))
+          and torch.equal(st_a, st_b), "K2: two calls differ")
+    check(torch.equal(*grads), "K3: two calls differ")
+    del sums, grads, dsr
+    print(f"kernels: flagship paths {paths}; K2 and K3 bit-identical over two "
+          f"calls; tv mean {float(st_k[3]):.6e}", flush=True)
+
+    dev_ms = loss_device_times({name: rec["fns"][0] for name, rec in out.items()})
     for name, rec in out.items():
         # kernel, plain, kernel, plain; the median over both turns' windows
         fn_k, fn_p = rec.pop("fns")
@@ -176,15 +282,27 @@ def kernel_phase(rk, dev) -> dict:
         win_k, win_p = runs[0] + runs[2], runs[1] + runs[3]
         rec["ms"] = statistics.median(win_k)
         rec["plain_ms"] = statistics.median(win_p)
-        t_bytes = rec.pop("bytes") / HBM_BYTES_PER_S * 1e3
+        n_bytes = rec.pop("bytes")
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n * OPS_PER_ELEMENT[name] / FP32_OPS_PER_S * 1e3
         rec["bound_ms"] = max(t_bytes, t_ops)
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        kern, fin = LOSS_KERNELS[name]
+        rec["kernel_device_ms"] = dev_ms[kern]
+        rec["finalize_device_ms"] = dev_ms[fin] if fin else None
+        rec["device_ms"] = dev_ms[kern] + (dev_ms[fin] if fin else 0.0)
+        rec["gb_per_s"] = n_bytes / (rec["device_ms"] * 1e-3) / 1e9
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
         print(f"kernel {name}: max|d|={rec['max_abs_err']:.3e} "
               f"ms={rec['ms']:.4f} (windows {min(win_k):.4f}..{max(win_k):.4f}) "
               f"plain ms={rec['plain_ms']:.4f} (windows "
               f"{min(win_p):.4f}..{max(win_p):.4f}) "
-              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
+              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}); device ms a "
+              f"launch {kern} {dev_ms[kern]:.4f}"
+              + (f" + {fin} {dev_ms[fin]:.4f}" if fin else "")
+              + f" = {rec['device_ms']:.4f}: {rec['gb_per_s']:.0f} GB/s, "
+              f"{rec['bound_share']:.3f} of the bound "
+              f"(by events {rec['bound_ms'] / rec['ms']:.3f})", flush=True)
     return out
 
 
@@ -254,6 +372,7 @@ def training_phase(rk, dev) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = dict(rk.launches)
+        paths = dict(rk.paths)
         psnr, ssim = trainer.compute_score(val_pipe, 1)
         peak = torch.cuda.max_memory_allocated()
         profile_epoch(trainer, train_pipe, m["n_batches"])
@@ -267,13 +386,16 @@ def training_phase(rk, dev) -> dict:
         check(math.isfinite(m[k]) and math.isfinite(warm[k]), f"{k} not finite")
     for name, c in counts.items():
         check(c == steps, f"{name} launched {c} times in {steps} steps")
+    for name in ("loss_sums", "loss_grad"):
+        check(paths[f"{name}_vec"] == steps and paths[f"{name}_scalar"] == 0,
+              f"{name}: paths {paths}, expected the vector path every step")
     check(math.isfinite(psnr) and math.isfinite(ssim), "validation score not finite")
     step_ms = dt / steps * 1e3
     print(f"train: warm-up epoch {warm_s:.3f} s; counted epoch {steps} steps "
           f"{step_ms:.2f} ms/step {12 * steps / dt:.2f} img/s; "
           f"g_loss {warm['g_loss']:.5f} -> {m['g_loss']:.5f}; "
           f"psnr {psnr:.3f} ssim {ssim:.4f}; peak memory "
-          f"{peak / 2**30:.2f} GiB; launches {counts}", flush=True)
+          f"{peak / 2**30:.2f} GiB; launches {counts}; paths {paths}", flush=True)
     return counts
 
 
@@ -290,8 +412,7 @@ def profile_epoch(trainer, pipe, steps: int) -> None:
     for e in _device_events(prof):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    loss = sum(v for k, v in by_name.items()
-               if any(n in k for n in LOSS_KERNEL_SYMBOLS))
+    loss = sum(v for k, v in by_name.items() if LOSS_KERNEL_RE.search(k))
     print(f"profile: {steps} steps, wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy / 1e3:.1f} ms (idle share {1 - busy / wall_us:.3f}); loss "
           f"kernels K1-K3 {loss / 1e3:.3f} ms ({loss / busy:.4f} of busy)",
@@ -551,21 +672,22 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     from srgan_tpu_torch.ops.cuda import recon_loss_kernel as rk
-    from srgan_tpu_torch.ops.cuda.build import build
+    from srgan_tpu_torch.ops.cuda.build import SOURCES, build, ptxas_report
     from srgan_tpu_torch.utils.platform import disable_tf32
 
     t0 = time.perf_counter()
     reports = build()
     print(f"build: {len(reports)} source(s) compiled in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name, rep in reports.items():
-        for line in rep.splitlines():
+    for name in SOURCES:  # built now or earlier: each keeps its report
+        for line in ptxas_report(name).splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    resources = loss_ptxas(ptxas_report("recon_loss"))
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -578,6 +700,7 @@ def main() -> int:
 
     line = []
     for name, rec in kernels.items():
+        regs = resources.get((name, "vec"))
         line.append({
             "name": f"recon_{name}",
             "route": "cuda",
@@ -585,6 +708,9 @@ def main() -> int:
             "replaces": TPU_KERNELS[name],
             "launches": counts[name],
             **rec,
+            "path": "vec" if name != "edge_stats" else None,
+            "registers": regs[0] if regs else None,
+            "spill_bytes": regs[2] if regs else None,
             "library_ms": None,  # no single PyTorch call computes it
             "cudnn_chain_ms": None,
             "tflops": None,

@@ -11,8 +11,8 @@
 //      to clip((e-mean)/std*0.2+1, 0, 2); per-block sums of |hr-sr|*e, e and
 //      |DIFF*sr|*(1-e). loss_sums_finalize gives edge_loss and relu(tv mean).
 //   K3 grad_kernel        <- _grad_kernel       (:188)   d loss / d sr =
-//      -sign(hr-sr)*e*c_edge + DIFF (x) (sign(DIFF*sr)*(1-e))*c_tv, with a
-//      2-cell halo; hr gets no gradient.
+//      -sign(hr-sr)*e*c_edge + DIFF (x) (sign(DIFF*sr)*(1-e))*c_tv; hr gets
+//      no gradient.
 //
 // What bounds them on an H100 SXM: bytes. At the flagship shape (HR
 // 512x1024, batch 12, C=3, fp32: 75.5 MB per tensor) each reads its inputs
@@ -23,16 +23,54 @@
 //   K2      151 MB  (hr, sr)            ~45 us
 //   K3      226.5 MB (hr, sr, dsr out)  ~68 us
 //
-// Design. The TPU kernels walk (plane, 128-row strip) on a sequential grid
-// and accumulate in SMEM scalars. Here blocks run in parallel: each block
-// takes a (row strip x column tile) of one image with all C channels, staged
-// in shared memory in the global NHWC order with a 1-cell halo (K1, K2) or
-// a 2-cell halo (K3), so the rows it reads are contiguous and coalesced and
-// no plane transpose or padding copy is made. Each block writes its partial
-// sums to a [n_blocks, k] fp64 buffer; a one-block finalise launch sums them
-// in a fixed order. No float atomics: results are the same from run to run.
-// The scalars stay on the device (no host sync); K3 reads c_edge and c_tv
-// from the incoming gradients in device memory.
+// K1 takes a (row strip x column tile) of one image a block, staged in
+// shared memory in the global NHWC order with a 1-cell halo, so the rows
+// it reads are contiguous and coalesced and no plane transpose or padding
+// copy is made.
+//
+// K2 and K3 are streaming row-band stencils. Staged 2-D tiles held them at
+// a third of their bound: scalar loads issued only in a staging phase (no
+// loads in flight while a block computed or reduced), ~20 (K2) and ~37
+// (K3) shared-memory accesses an element, above what the SM's 32 words a
+// clock serve at the bound, and 1.16x / 1.41x halo cells. Here:
+//   - A warp owns a band of 32 float4 columns of the flat NHWC row (W*C
+//     floats), one float4 a lane, and walks down a run of rows. It reads
+//     each input row once, by 16-byte loads straight into registers,
+//     three rows in flight beyond the three it computes on.
+//   - Registers carry the vertical window: each lane keeps rows y-1, y, y+1
+//     of its 4 floats in a ring of register slots, each new row in the
+//     slot of the row it no longer needs, the loop unrolled around the
+//     ring so that no moves shift the window. The 3x3 stencils are
+//     separable into column sums (Sobel-x and DIFF: the sum of the three
+//     rows; Sobel-y: row y+1 minus row y-1) and a horizontal pass over the
+//     neighbours +-C floats away (the adjacent pixel, C <= 4), which come
+//     from the lane itself or from the adjacent lane by __shfl_up/down.
+//     Per element: ~4.5 shuffles in K2 (three column sums), ~6 in K3 (and
+//     the field's), no shared memory.
+//   - K3 forms the field sign(DIFF*sr)*(1-e) of row y when input row y+1
+//     arrives, keeps three field rows and e of the row before in
+//     registers, and writes dsr row y-1 with 16-byte stores: no second
+//     pass and no ring recompute.
+//   - Bands overlap by halo lanes: one a side in K2 (its stencils reach one
+//     lane), two in K3 (the field's stencil on top of the inputs'). The
+//     warp's end lanes read past it and give garbage; the halo lanes only
+//     feed their neighbours. The vertical halo is 2 (K2) or 4 (K3) rows a
+//     run of ~80 rows.
+//   - The launch fills the card once: kBlocksPerSm blocks of kBandWarps
+//     warps an SM (__launch_bounds__ guarantees they fit). Each band's
+//     B*H rows are cut into equal runs, one a warp, a run crossing into
+//     the next image where it must; consecutive warps take adjacent bands
+//     of the same rows. No tail wave.
+//   - Rows must start 16-byte aligned for the float4 path ((W*C) % 4 == 0
+//     and 16-byte aligned tensors); other inputs take the same kernel with
+//     scalar loads and stores (VEC = false). The caller picks; the entry
+//     points refuse the vector path on misaligned input.
+// Sums: each lane adds its row's fp32 sums to fp64 accumulators every row;
+// then a fixed-order shuffle tree, one shared pass over the block's warps,
+// and one partial a block; a one-block finalise launch sums the partials
+// in a fixed order. No float atomics: two calls give the same bits. The
+// scalars stay on the device (no host sync); K3 reads c_edge and c_tv from
+// the incoming gradients in device memory.
 //
 // Plain C interface for ctypes (srgan_tpu_torch/ops/cuda/recon_loss_kernel.py).
 // Every entry point returns cudaGetLastError() after its launches.
@@ -41,6 +79,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -48,8 +88,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kFwdTileH = 16;
 constexpr int kFwdTileW = 64;
-constexpr int kBwdTileH = 16;
-constexpr int kBwdTileW = 32;
 constexpr int kMaxChannels = 4;
 
 // Stage rows [gy0, gy0+ROWS) x columns [gx0, gx0+COLS) of image b, all C
@@ -86,17 +124,10 @@ __device__ __forceinline__ float sobel_edge(const float* p) {
   return fmaxf(fabsf(gx), fabsf(gy));
 }
 
-// DIFF_KERNEL: unit centre, -1/8 on the 8 neighbours (symmetric, so its
-// correlation equals its convolution: K3 reuses it for the transpose).
-template <int C, int RS>
-__device__ __forceinline__ float diff_stencil(const float* p) {
-  const float ring = p[-RS - C] + p[-RS] + p[-RS + C] + p[-C] + p[C] +
-                     p[RS - C] + p[RS] + p[RS + C];
-  return p[0] - 0.125f * ring;
-}
-
-__device__ __forceinline__ float normalize_edge(float e, float mean, float std) {
-  return fminf(fmaxf((e - mean) / std * 0.2f + 1.f, 0.f), 2.f);
+// (e - mean) / std * 0.2 + 1, clipped to [0, 2]; scale = 0.2 / std, so
+// that the per-element division becomes a multiply
+__device__ __forceinline__ float normalize_edge(float e, float mean, float scale) {
+  return fminf(fmaxf((e - mean) * scale + 1.f, 0.f), 2.f);
 }
 
 __device__ __forceinline__ float sgn(float x) {
@@ -184,38 +215,236 @@ edge_stats_finalize(const double* __restrict__ partials, int n_blocks,
   }
 }
 
+// ------------------------------------------------ K2 and K3: row bands ----
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBandWarps = 4;                  // warps a block
+constexpr int kBandThreads = 32 * kBandWarps;
+constexpr int kBlocksPerSm = 4;                // resident: <= 128 registers
+// Input rows a lane holds: the window y-1, y, y+1 and the kSlots - 3 rows
+// after it, in flight. They sit in a ring of registers, row r in slot
+// (r - first row) % kSlots, and the row loop is unrolled kSlots steps, so
+// every index is a constant and no register moves shift the window.
+constexpr int kSlots = 6;
+constexpr int kMinRun = 8;                     // rows a warp, at least
+constexpr int kSumsHalo = 1;                   // halo lanes a side: K2
+constexpr int kGradHalo = 2;                   // K3
+
+// A lane's 4 consecutive floats of one row.
+struct V4 {
+  float v[4];
+};
+
+// Floats [4q, 4q+4) of row r of an image of rw floats a row; zero outside
+// the row and for rows outside [0, last] (the stencils' zero padding, and
+// no load past what the run needs). VEC: one 16-byte load.
+template <bool VEC>
+__device__ __forceinline__ V4 load_row(const float* __restrict__ img, int r,
+                                       int last, int q, int rw) {
+  V4 a = {{0.f, 0.f, 0.f, 0.f}};
+  const int j = 4 * q;
+  if (r < 0 || r > last || j < 0 || j >= rw) return a;
+  const float* p = img + (int64_t)r * rw + j;
+  if (VEC) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    a.v[0] = t.x;
+    a.v[1] = t.y;
+    a.v[2] = t.z;
+    a.v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (j + k < rw) a.v[k] = p[k];
+    }
+  }
+  return a;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store_row(float* __restrict__ img, int r, int q,
+                                          int rw, const V4& a,
+                                          const bool (&own)[4]) {
+  if (VEC) {
+    // rw % 4 == 0: a lane owns all four floats or none
+    if (own[0]) {
+      *reinterpret_cast<float4*>(img + (int64_t)r * rw + 4 * q) =
+          make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (own[k]) img[(int64_t)r * rw + 4 * q + k] = a.v[k];
+    }
+  }
+}
+
+// Each float's neighbours C floats (one pixel) to the left and to the
+// right along the row: from the lane itself or, across the float4's edge,
+// from the adjacent lane (C shuffles each way). The warp's end lanes get
+// values from the wrong side: they are halo lanes.
+template <int C>
+__device__ __forceinline__ void row_neighbours(const V4& x, V4& l, V4& r) {
+  V4 from_l, from_r;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    from_l.v[k] = k >= 4 - C ? __shfl_up_sync(kFull, x.v[k], 1) : 0.f;
+    from_r.v[k] = k < C ? __shfl_down_sync(kFull, x.v[k], 1) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    l.v[k] = (k >= C ? x : from_l).v[(k + 4 - C) & 3];
+    r.v[k] = (k + C < 4 ? x : from_r).v[(k + C) & 3];
+  }
+}
+
+// Per float of the centre row of the window (rows a, b, c of hr and sr):
+// the normalised edge map e and DIFF*sr. Three column sums cross lanes.
+template <int C>
+__device__ __forceinline__ void edge_and_diff(const V4& ha, const V4& hb,
+                                              const V4& hc, const V4& sa,
+                                              const V4& sb, const V4& sc,
+                                              float mean, float scale, V4& e,
+                                              V4& d) {
+  V4 sh, dh, ss;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    sh.v[k] = ha.v[k] + hb.v[k] + hc.v[k];
+    dh.v[k] = hc.v[k] - ha.v[k];
+    ss.v[k] = sa.v[k] + sb.v[k] + sc.v[k];
+  }
+  V4 shl, shr, dhl, dhr, ssl, ssr;
+  row_neighbours<C>(sh, shl, shr);
+  row_neighbours<C>(dh, dhl, dhr);
+  row_neighbours<C>(ss, ssl, ssr);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // SOBEL_X rows are (-5, 0, 5); SOBEL_Y is its transpose
+    const float gx = 5.f * (shr.v[k] - shl.v[k]);
+    const float gy = 5.f * (dhl.v[k] + dh.v[k] + dhr.v[k]);
+    e.v[k] = normalize_edge(fmaxf(fabsf(gx), fabsf(gy)), mean, scale);
+    // DIFF_KERNEL: unit centre, -1/8 on the 8 neighbours
+    const float ring = (ssl.v[k] + ssr.v[k]) + (sa.v[k] + sc.v[k]);
+    d.v[k] = sb.v[k] - 0.125f * ring;
+  }
+}
+
+// Each band's B*H rows (its images one after another) cut into equal
+// runs, one a warp, so that the launch fills every SM once. Consecutive
+// warps take adjacent bands of the same rows: a block reads 4 bands'
+// width of each row together, and neighbours share their halo sectors.
+struct Runs {
+  int blocks;
+  int rows;   // a warp's run
+  int bands;
+};
+
+Runs band_runs(int B, int H, int W, int C, int halo) {
+  const int64_t vecs = ((int64_t)W * C + 3) / 4;
+  const int64_t bands = (vecs + 31 - 2 * halo) / (32 - 2 * halo);
+  const int64_t rows = (int64_t)B * H;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t warps = (int64_t)std::max(sms, 1) * kBlocksPerSm * kBandWarps;
+  const int64_t runs = std::max<int64_t>(1, warps / bands);
+  const int64_t run = std::max<int64_t>(kMinRun, (rows + runs - 1) / runs);
+  const int64_t used = bands * ((rows + run - 1) / run);
+  return {(int)((used + kBandWarps - 1) / kBandWarps), (int)run, (int)bands};
+}
+
+// Walks the warp's run of rows: calls seg(band, image, y0, y1) for each
+// stretch of it inside one image.
+template <typename Seg>
+__device__ __forceinline__ void for_each_stretch(int B, int H, int run,
+                                                 int bands, Seg&& seg) {
+  const int64_t w = (int64_t)blockIdx.x * kBandWarps + threadIdx.x / 32;
+  const int band = (int)(w % bands);
+  const int64_t rows = (int64_t)B * H;
+  int64_t t = w / bands * run;
+  const int64_t end = t + run < rows ? t + run : rows;
+  while (t < end) {
+    const int b = (int)(t / H);
+    const int y0 = (int)(t - (int64_t)b * H);
+    const int y1 = end - t < H - y0 ? y0 + (int)(end - t) : H;
+    seg(band, b, y0, y1);
+    t += y1 - y0;
+  }
+}
+
 // ---------------------------------------------------------------- K2 ----
 
-template <int C>
-__global__ void __launch_bounds__(kThreads)
+template <int C, bool VEC>
+__global__ void __launch_bounds__(kBandThreads, kBlocksPerSm)
 loss_sums_kernel(const float* __restrict__ hr, const float* __restrict__ sr,
-                 int H, int W, const float* __restrict__ stats,
-                 double* __restrict__ partials) {
-  constexpr int RS = (kFwdTileW + 2) * C;
-  constexpr int TW = kFwdTileW * C;
-  __shared__ float s_hr[(kFwdTileH + 2) * RS];
-  __shared__ float s_sr[(kFwdTileH + 2) * RS];
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kFwdTileH;
-  const int x0 = blockIdx.x * kFwdTileW;
-  stage_tile<C, kFwdTileH + 2, kFwdTileW + 2>(s_hr, hr, b, H, W, y0 - 1, x0 - 1);
-  stage_tile<C, kFwdTileH + 2, kFwdTileW + 2>(s_sr, sr, b, H, W, y0 - 1, x0 - 1);
-  __syncthreads();
+                 int B, int H, int W, int run, int bands,
+                 const float* __restrict__ stats, double* __restrict__ partials) {
+  constexpr int kOut = 32 - 2 * kSumsHalo;
+  const int lane = threadIdx.x % 32;
+  const int rw = W * C;
+  const float mean = stats[0], scale = 0.2f / stats[1];
+  double v[3] = {0.0, 0.0, 0.0};
+  for_each_stretch(B, H, run, bands, [&](int band, int b, int y0, int y1) {
+    const int q = band * kOut - kSumsHalo + lane;
+    bool own[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      own[k] = lane >= kSumsHalo && lane < 32 - kSumsHalo && q >= 0 &&
+               4 * q + k < rw;
+    }
+    const int64_t plane = (int64_t)b * H * rw;
+    const float* hb = hr + plane;
+    const float* sb = sr + plane;
+    const int last = min(y1, H - 1);
+    // slot i: row y0 - 1 + i, then every kSlots rows on
+    V4 h[kSlots], s[kSlots];
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      h[i] = load_row<VEC>(hb, y0 - 1 + i, last, q, rw);
+      s[i] = load_row<VEC>(sb, y0 - 1 + i, last, q, rw);
+    }
+    for (int y0s = y0; y0s < y1; y0s += kSlots) {
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        const int y = y0s + i;
+        if (y >= y1) break;
+        const int w0 = i, w1 = (i + 1) % kSlots, w2 = (i + 2) % kSlots;
+        V4 e, d;
+        edge_and_diff<C>(h[w0], h[w1], h[w2], s[w0], s[w1], s[w2], mean, scale, e, d);
+        float wdiff = 0.f, esum = 0.f, tv = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (own[k]) {
+            wdiff += fabsf(h[w1].v[k] - s[w1].v[k]) * e.v[k];
+            esum += e.v[k];
+            tv += fabsf(d.v[k]) * (1.f - e.v[k]);
+          }
+        }
+        v[0] += wdiff;
+        v[1] += esum;
+        v[2] += tv;
+        // row y-1 is done with: its slot takes row y-1+kSlots
+        h[w0] = load_row<VEC>(hb, y - 1 + kSlots, last, q, rw);
+        s[w0] = load_row<VEC>(sb, y - 1 + kSlots, last, q, rw);
+      }
+    }
+  });
 
-  const float mean = stats[0], std = stats[1];
-  float wdiff = 0.f, esum = 0.f, tv = 0.f;
-  for (int i = threadIdx.x; i < kFwdTileH * TW; i += kThreads) {
-    const int r = i / TW;
-    const int j = i - r * TW;
-    if (y0 + r >= H || x0 + j / C >= W) continue;
-    const int o = (r + 1) * RS + C + j;
-    const float e = normalize_edge(sobel_edge<C, RS>(s_hr + o), mean, std);
-    wdiff += fabsf(s_hr[o] - s_sr[o]) * e;
-    esum += e;
-    tv += fabsf(diff_stencil<C, RS>(s_sr + o)) * (1.f - e);
+  // fixed order: a shuffle tree in each warp, then the warps in turn
+  __shared__ double red[kBandWarps][3];
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) v[k] += __shfl_xor_sync(kFull, v[k], m);
   }
-  double v[3] = {wdiff, esum, tv};
-  block_sum<3>(v);
+  if (lane == 0) {
+    for (int k = 0; k < 3; ++k) red[threadIdx.x / 32][k] = v[k];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 3; ++k) {
+      for (int i = 1; i < kBandWarps; ++i) v[k] += red[i][k];
+    }
+  }
   store_partials<3>(partials, v);
 }
 
@@ -236,63 +465,83 @@ loss_sums_finalize(const double* __restrict__ partials, int n_blocks,
 
 // ---------------------------------------------------------------- K3 ----
 
-template <int C>
-__global__ void __launch_bounds__(kThreads)
+template <int C, bool VEC>
+__global__ void __launch_bounds__(kBandThreads, kBlocksPerSm)
 grad_kernel(const float* __restrict__ hr, const float* __restrict__ sr,
-            int H, int W, float count, const float* __restrict__ stats,
-            const float* __restrict__ g_edge, const float* __restrict__ g_tv,
-            float* __restrict__ dsr) {
-  constexpr int IN_ROWS = kBwdTileH + 4;      // inputs: 2-cell halo
-  constexpr int RS_IN = (kBwdTileW + 4) * C;
-  constexpr int F_ROWS = kBwdTileH + 2;       // field: 1-cell halo
-  constexpr int RS_F = (kBwdTileW + 2) * C;
-  constexpr int TW = kBwdTileW * C;
-  __shared__ float s_hr[IN_ROWS * RS_IN];
-  __shared__ float s_sr[IN_ROWS * RS_IN];
-  __shared__ float s_inner[F_ROWS * RS_F];
-  __shared__ float s_e[F_ROWS * RS_F];
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kBwdTileH;
-  const int x0 = blockIdx.x * kBwdTileW;
-  stage_tile<C, IN_ROWS, kBwdTileW + 4>(s_hr, hr, b, H, W, y0 - 2, x0 - 2);
-  stage_tile<C, IN_ROWS, kBwdTileW + 4>(s_sr, sr, b, H, W, y0 - 2, x0 - 2);
-  __syncthreads();
-
-  const float mean = stats[0], std = stats[1];
+            int B, int H, int W, int run, int bands, float count,
+            const float* __restrict__ stats, const float* __restrict__ g_edge,
+            const float* __restrict__ g_tv, float* __restrict__ dsr) {
+  constexpr int kOut = 32 - 2 * kGradHalo;
+  const int lane = threadIdx.x % 32;
+  const int rw = W * C;
+  const float mean = stats[0], scale = 0.2f / stats[1];
   const float c_edge = g_edge[0] / stats[2];
   const float c_tv = stats[3] > 0.f ? g_tv[0] / count : 0.f;  // relu gate
-
-  // The field sign(DIFF*sr)*(1-e) on the tile plus a 1-cell ring; cells
-  // outside the image are zero (no TV term exists there).
-  for (int i = threadIdx.x; i < F_ROWS * RS_F; i += kThreads) {
-    const int r = i / RS_F;
-    const int j = i - r * RS_F;
-    const int gy = y0 - 1 + r;
-    const int gx = x0 - 1 + j / C;
-    float inner = 0.f, e = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const int o = (r + 1) * RS_IN + C + j;
-      e = normalize_edge(sobel_edge<C, RS_IN>(s_hr + o), mean, std);
-      inner = sgn(diff_stencil<C, RS_IN>(s_sr + o)) * (1.f - e);
+  for_each_stretch(B, H, run, bands, [&](int band, int b, int y0, int y1) {
+    const int q = band * kOut - kGradHalo + lane;
+    bool in_row[4], own[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      in_row[k] = q >= 0 && 4 * q + k < rw;
+      own[k] = in_row[k] && lane >= kGradHalo && lane < 32 - kGradHalo;
     }
-    s_inner[i] = inner;
-    s_e[i] = e;
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < kBwdTileH * TW; i += kThreads) {
-    const int r = i / TW;
-    const int j = i - r * TW;
-    const int gy = y0 + r;
-    if (gy >= H || x0 + j / C >= W) continue;
-    const int of = (r + 1) * RS_F + C + j;
-    const int oi = (r + 2) * RS_IN + 2 * C + j;
-    const float g_tv_v = diff_stencil<C, RS_F>(s_inner + of) * c_tv;
-    const float g_e = -sgn(s_hr[oi] - s_sr[oi]) * s_e[of] * c_edge;
-    dsr[((int64_t)b * H + gy) * (int64_t)W * C + (int64_t)x0 * C + j] =
-        g_e + g_tv_v;
-  }
+    const int64_t plane = (int64_t)b * H * rw;
+    const float* hb = hr + plane;
+    const float* sb = sr + plane;
+    const int last = min(y1 + 1, H - 1);
+    // slot i: input row y0 - 2 + i, field row y0 - 1 + i, then every
+    // kSlots rows on; e of row y in ev[(y - y0 + 1) % 2]
+    static_assert(kSlots >= 3 && kSlots % 2 == 0, "field and e rings");
+    V4 h[kSlots], s[kSlots], f[kSlots] = {}, ev[2] = {};
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      h[i] = load_row<VEC>(hb, y0 - 2 + i, last, q, rw);
+      s[i] = load_row<VEC>(sb, y0 - 2 + i, last, q, rw);
+    }
+    for (int y0s = y0 - 1; y0s <= y1; y0s += kSlots) {
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        const int y = y0s + i;  // the field row this step forms
+        if (y > y1) break;
+        const int w0 = i, w1 = (i + 1) % kSlots, w2 = (i + 2) % kSlots;
+        V4 e, d;
+        edge_and_diff<C>(h[w0], h[w1], h[w2], s[w0], s[w1], s[w2], mean, scale, e, d);
+        // the field sign(DIFF*sr)*(1-e), zero outside the image (no TV term
+        // exists there)
+        const bool row_in = y >= 0 && y < H;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          f[w0].v[k] = row_in && in_row[k] ? sgn(d.v[k]) * (1.f - e.v[k]) : 0.f;
+        }
+        if (y > y0) {  // dsr row y-1: field rows y-2 .. y are complete
+          const V4& f0 = f[(i + kSlots - 2) % kSlots];
+          const V4& f1 = f[(i + kSlots - 1) % kSlots];
+          const V4& f2 = f[w0];
+          const V4& e1 = ev[(i + 1) % 2];
+          V4 sf, sfl, sfr, out;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) sf.v[k] = f0.v[k] + f1.v[k] + f2.v[k];
+          row_neighbours<C>(sf, sfl, sfr);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            // DIFF is symmetric: its transpose is itself
+            const float ring = (sfl.v[k] + sfr.v[k]) + (f0.v[k] + f2.v[k]);
+            const float g_tv_v = (f1.v[k] - 0.125f * ring) * c_tv;
+            const float g_e = -sgn(h[w0].v[k] - s[w0].v[k]) * e1.v[k] * c_edge;
+            out.v[k] = g_e + g_tv_v;
+          }
+          store_row<VEC>(dsr + plane, y - 1, q, rw, out, own);
+        }
+        ev[i % 2] = e;
+        // input row y-1 is done with: its slot takes row y-1+kSlots
+        h[w0] = load_row<VEC>(hb, y - 1 + kSlots, last, q, rw);
+        s[w0] = load_row<VEC>(sb, y - 1 + kSlots, last, q, rw);
+      }
+    }
+  });
 }
+
+// ------------------------------------------------------------- host ----
 
 dim3 fwd_grid(int B, int H, int W) {
   return dim3((W + kFwdTileW - 1) / kFwdTileW, (H + kFwdTileH - 1) / kFwdTileH,
@@ -302,6 +551,15 @@ dim3 fwd_grid(int B, int H, int W) {
 int fwd_blocks(int B, int H, int W) {
   const dim3 g = fwd_grid(B, H, W);
   return (int)(g.x * g.y * g.z);
+}
+
+// The float4 path needs every row to start 16-byte aligned.
+bool vector_rows(int W, int C, std::initializer_list<const void*> ptrs) {
+  if ((W * C) % 4) return false;
+  for (const void* p : ptrs) {
+    if ((uintptr_t)p % 16) return false;
+  }
+  return true;
 }
 
 // Calls fn with std::integral_constant<int, C> for C in 1..kMaxChannels,
@@ -323,8 +581,13 @@ int with_channels(int B, int H, int W, int C, Fn&& fn) {
 
 extern "C" {
 
-// Blocks of K1 and K2: the partials buffers hold 2 and 3 doubles per block.
+// Blocks of K1: its partials buffer holds 2 doubles per block.
 int recon_fwd_blocks(int B, int H, int W) { return fwd_blocks(B, H, W); }
+
+// Blocks of K2: its partials buffer holds 3 doubles per block.
+int recon_sums_blocks(int B, int H, int W, int C) {
+  return band_runs(B, H, W, C, kSumsHalo).blocks;
+}
 
 const char* recon_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -334,35 +597,43 @@ int recon_edge_stats(const float* hr, int B, int H, int W, int C,
                      double* partials, float* stats, cudaStream_t stream) {
   const double count = (double)B * H * W * C;
   return with_channels(B, H, W, C, [&](auto c) {
-    edge_stats_kernel<decltype(c)::value>
-        <<<fwd_grid(B, H, W), kThreads, 0, stream>>>(hr, H, W, partials);
+    auto kernel = edge_stats_kernel<decltype(c)::value>;
+    kernel<<<fwd_grid(B, H, W), kThreads, 0, stream>>>(hr, H, W, partials);
     edge_stats_finalize<<<1, kThreads, 0, stream>>>(
         partials, fwd_blocks(B, H, W), count, stats);
   });
 }
 
+// vec: 1 for the float4 path (refused unless vector_rows), 0 for scalar
+// loads; the partials buffer holds recon_sums_blocks * 3 doubles.
 int recon_loss_sums(const float* hr, const float* sr, int B, int H, int W,
-                    int C, double* partials, float* stats, float* edge_loss,
-                    float* tv_loss, cudaStream_t stream) {
+                    int C, int vec, double* partials, float* stats,
+                    float* edge_loss, float* tv_loss, cudaStream_t stream) {
+  if (vec && !vector_rows(W, C, {hr, sr})) return (int)cudaErrorInvalidValue;
   const double count = (double)B * H * W * C;
   return with_channels(B, H, W, C, [&](auto c) {
-    loss_sums_kernel<decltype(c)::value>
-        <<<fwd_grid(B, H, W), kThreads, 0, stream>>>(hr, sr, H, W, stats,
-                                                     partials);
+    constexpr int kC = decltype(c)::value;
+    const Runs runs = band_runs(B, H, W, kC, kSumsHalo);
+    auto kernel = vec ? loss_sums_kernel<kC, true> : loss_sums_kernel<kC, false>;
+    kernel<<<runs.blocks, kBandThreads, 0, stream>>>(
+        hr, sr, B, H, W, runs.rows, runs.bands, stats, partials);
     loss_sums_finalize<<<1, kThreads, 0, stream>>>(
-        partials, fwd_blocks(B, H, W), count, stats, edge_loss, tv_loss);
+        partials, runs.blocks, count, stats, edge_loss, tv_loss);
   });
 }
 
 int recon_loss_grad(const float* hr, const float* sr, int B, int H, int W,
-                    int C, const float* stats, const float* g_edge,
+                    int C, int vec, const float* stats, const float* g_edge,
                     const float* g_tv, float* dsr, cudaStream_t stream) {
+  if (vec && !vector_rows(W, C, {hr, sr, dsr})) return (int)cudaErrorInvalidValue;
   const float count = (float)((double)B * H * W * C);
-  const dim3 grid((W + kBwdTileW - 1) / kBwdTileW,
-                  (H + kBwdTileH - 1) / kBwdTileH, B);
   return with_channels(B, H, W, C, [&](auto c) {
-    grad_kernel<decltype(c)::value><<<grid, kThreads, 0, stream>>>(
-        hr, sr, H, W, count, stats, g_edge, g_tv, dsr);
+    constexpr int kC = decltype(c)::value;
+    const Runs runs = band_runs(B, H, W, kC, kGradHalo);
+    auto kernel = vec ? grad_kernel<kC, true> : grad_kernel<kC, false>;
+    kernel<<<runs.blocks, kBandThreads, 0, stream>>>(
+        hr, sr, B, H, W, runs.rows, runs.bands, count, stats, g_edge, g_tv,
+        dsr);
   });
 }
 

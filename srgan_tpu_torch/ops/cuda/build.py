@@ -77,9 +77,16 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
             raise RuntimeError(
                 f"nvcc failed for csrc/{name}.cu:\n{stdout}{stderr}"
             )
+        out.with_suffix(".ptxas").write_text(stderr)
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
         reports[name] = stderr
     return reports
+
+
+def ptxas_report(name: str) -> str:
+    """The ``ptxas`` resource report of the built ``csrc/<name>.cu``."""
+    build((name,))
+    return library_path(name).with_suffix(".ptxas").read_text()
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,7 +13,11 @@ device, so the forward makes no host sync.
 Each wrapper launches its kernel for CUDA tensors, adds one to its count in
 ``launches`` there, and raises if the launch fails; for CPU tensors it runs
 its plain version (``*_plain`` below, built from ``ops.recon_loss``). No
-path falls back from the kernel to the plain version.
+path falls back from the kernel to the plain version. K2 and K3 take their
+16-byte path where every row starts 16-byte aligned (``vector_path``) and
+their scalar path otherwise, counted in ``paths``. The ``_launch_*``
+functions do the launches for a given library, the card's or a CPU build
+of the source (``tests/test_torch_recon_source.py``).
 """
 
 from __future__ import annotations
@@ -29,38 +33,47 @@ from srgan_tpu_torch.ops.filters import DIFF_KERNEL, depthwise_conv3x3, sobel_ed
 from srgan_tpu_torch.ops.recon_loss import normalize_edges
 
 # Launches of each kernel on the card (finalise launches included with
-# their kernel); CPU calls do not count.
+# their kernel); CPU calls do not count. ``paths`` splits K2's and K3's by
+# the path they took: ``_vec`` the 16-byte loads, ``_scalar`` the others.
 launches = {"edge_stats": 0, "loss_sums": 0, "loss_grad": 0}
+paths = {"loss_sums_vec": 0, "loss_sums_scalar": 0,
+         "loss_grad_vec": 0, "loss_grad_scalar": 0}
 MAX_CHANNELS = 4  # kMaxChannels in the source: bounds the shared memory
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, paths):
+        for k in counts:
+            counts[k] = 0
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.recon_fwd_blocks.argtypes = [I, I, I]
+    lib.recon_fwd_blocks.restype = I
+    lib.recon_sums_blocks.argtypes = [I, I, I, I]
+    lib.recon_sums_blocks.restype = I
+    lib.recon_error_string.argtypes = [I]
+    lib.recon_error_string.restype = ctypes.c_char_p
+    lib.recon_edge_stats.argtypes = [P, I, I, I, I, P, P, P]
+    lib.recon_edge_stats.restype = I
+    lib.recon_loss_sums.argtypes = [P, P, I, I, I, I, I, P, P, P, P, P]
+    lib.recon_loss_sums.restype = I
+    lib.recon_loss_grad.argtypes = [P, P, I, I, I, I, I, P, P, P, P, P]
+    lib.recon_loss_grad.restype = I
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from srgan_tpu_torch.ops.cuda.build import load
 
-    lib = load("recon_loss")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.recon_fwd_blocks.argtypes = [I, I, I]
-    lib.recon_fwd_blocks.restype = I
-    lib.recon_error_string.argtypes = [I]
-    lib.recon_error_string.restype = ctypes.c_char_p
-    lib.recon_edge_stats.argtypes = [P, I, I, I, I, P, P, P]
-    lib.recon_edge_stats.restype = I
-    lib.recon_loss_sums.argtypes = [P, P, I, I, I, I, P, P, P, P, P]
-    lib.recon_loss_sums.restype = I
-    lib.recon_loss_grad.argtypes = [P, P, I, I, I, I, P, P, P, P, P]
-    lib.recon_loss_grad.restype = I
-    return lib
+    return _bind(load("recon_loss"))
 
 
-def _check_launch(rc: int, what: str) -> None:
+def _raise_if_failed(lib, rc: int, what: str) -> None:
     if rc != 0:
-        msg = _lib().recon_error_string(rc).decode()
+        msg = lib.recon_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
@@ -77,6 +90,14 @@ def _check(*tensors: torch.Tensor) -> None:
             raise ValueError("expected contiguous NHWC tensors")
     if not 1 <= shape[-1] <= MAX_CHANNELS:
         raise ValueError(f"channels must be 1..{MAX_CHANNELS}, got {shape[-1]}")
+
+
+def vector_path(*tensors: torch.Tensor) -> bool:
+    """Whether K2 / K3 take their 16-byte path for these contiguous NHWC
+    tensors: every row starts 16-byte aligned, i.e. W·C % 4 == 0 and each
+    tensor's data 16-byte aligned. Others take the scalar path."""
+    _, _, w, c = tensors[0].shape
+    return (w * c) % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -110,6 +131,57 @@ def loss_grad_plain(hr, sr, stats, g_edge, g_tv) -> torch.Tensor:
     return -torch.sign(hr - sr) * e * c_edge + g_tv_field
 
 
+# -------------------------------------------------------------- launches --
+# Each takes the library, so that a build of the source for the CPU can be
+# driven with CPU tensors; the caller checks the arguments and passes the
+# stream (0 there).
+
+
+def _launch_edge_stats(lib, hr, stream: int) -> torch.Tensor:
+    """K1 + finalise; returns ``stats``."""
+    b, h, w, c = hr.shape
+    partials = torch.empty(lib.recon_fwd_blocks(b, h, w) * 2, dtype=torch.float64,
+                           device=hr.device)
+    stats = torch.empty(4, dtype=torch.float32, device=hr.device)
+    rc = lib.recon_edge_stats(hr.data_ptr(), b, h, w, c, partials.data_ptr(),
+                              stats.data_ptr(), stream)
+    _raise_if_failed(lib, rc, "recon_edge_stats")
+    return stats
+
+
+def _launch_loss_sums(lib, hr, sr, stats, vec: bool, stream: int):
+    """K2 + finalise; returns ``(edge_loss, tv_loss)`` and writes ``stats[2:4]``."""
+    b, h, w, c = hr.shape
+    partials = torch.empty(lib.recon_sums_blocks(b, h, w, c) * 3,
+                           dtype=torch.float64, device=hr.device)
+    edge_loss = torch.empty((), dtype=torch.float32, device=hr.device)
+    tv_loss = torch.empty((), dtype=torch.float32, device=hr.device)
+    rc = lib.recon_loss_sums(
+        hr.data_ptr(), sr.data_ptr(), b, h, w, c, int(vec), partials.data_ptr(),
+        stats.data_ptr(), edge_loss.data_ptr(), tv_loss.data_ptr(), stream,
+    )
+    _raise_if_failed(lib, rc, "recon_loss_sums")
+    return edge_loss, tv_loss
+
+
+def _launch_loss_grad(lib, hr, sr, stats, g_edge, g_tv, vec: bool,
+                      stream: int) -> torch.Tensor:
+    """K3; returns d loss / d sr."""
+    b, h, w, c = hr.shape
+    scalars = [
+        g.detach().to(device=hr.device, dtype=torch.float32).reshape(())
+        .contiguous()
+        for g in (g_edge, g_tv)
+    ]
+    dsr = torch.empty_like(sr)
+    rc = lib.recon_loss_grad(
+        hr.data_ptr(), sr.data_ptr(), b, h, w, c, int(vec), stats.data_ptr(),
+        scalars[0].data_ptr(), scalars[1].data_ptr(), dsr.data_ptr(), stream,
+    )
+    _raise_if_failed(lib, rc, "recon_loss_grad")
+    return dsr
+
+
 # -------------------------------------------------------------- wrappers --
 
 
@@ -118,17 +190,8 @@ def edge_stats(hr: torch.Tensor) -> torch.Tensor:
     if not hr.is_cuda:
         return edge_stats_plain(hr)
     _check(hr)
-    b, h, w, c = hr.shape
-    lib = _lib()
     with torch.cuda.device(hr.device):
-        n = lib.recon_fwd_blocks(b, h, w)
-        partials = torch.empty(n * 2, dtype=torch.float64, device=hr.device)
-        stats = torch.empty(4, dtype=torch.float32, device=hr.device)
-        rc = lib.recon_edge_stats(
-            hr.data_ptr(), b, h, w, c, partials.data_ptr(), stats.data_ptr(),
-            _stream(hr),
-        )
-    _check_launch(rc, "recon_edge_stats")
+        stats = _launch_edge_stats(_lib(), hr, _stream(hr))
     launches["edge_stats"] += 1
     return stats
 
@@ -138,21 +201,12 @@ def loss_sums(hr, sr, stats) -> Tuple[torch.Tensor, torch.Tensor]:
     if not hr.is_cuda:
         return loss_sums_plain(hr, sr, stats)
     _check(hr, sr)
-    b, h, w, c = hr.shape
-    lib = _lib()
+    vec = vector_path(hr, sr)
     with torch.cuda.device(hr.device):
-        n = lib.recon_fwd_blocks(b, h, w)
-        partials = torch.empty(n * 3, dtype=torch.float64, device=hr.device)
-        edge_loss = torch.empty((), dtype=torch.float32, device=hr.device)
-        tv_loss = torch.empty((), dtype=torch.float32, device=hr.device)
-        rc = lib.recon_loss_sums(
-            hr.data_ptr(), sr.data_ptr(), b, h, w, c, partials.data_ptr(),
-            stats.data_ptr(), edge_loss.data_ptr(), tv_loss.data_ptr(),
-            _stream(hr),
-        )
-    _check_launch(rc, "recon_loss_sums")
+        out = _launch_loss_sums(_lib(), hr, sr, stats, vec, _stream(hr))
     launches["loss_sums"] += 1
-    return edge_loss, tv_loss
+    paths["loss_sums_vec" if vec else "loss_sums_scalar"] += 1
+    return out
 
 
 def loss_grad(hr, sr, stats, g_edge, g_tv) -> torch.Tensor:
@@ -160,21 +214,11 @@ def loss_grad(hr, sr, stats, g_edge, g_tv) -> torch.Tensor:
     if not hr.is_cuda:
         return loss_grad_plain(hr, sr, stats, g_edge, g_tv)
     _check(hr, sr)
-    b, h, w, c = hr.shape
-    scalars = [
-        g.detach().to(device=hr.device, dtype=torch.float32).reshape(())
-        .contiguous()
-        for g in (g_edge, g_tv)
-    ]
+    vec = vector_path(hr, sr)  # dsr is a fresh, aligned allocation
     with torch.cuda.device(hr.device):
-        dsr = torch.empty_like(sr)
-        rc = _lib().recon_loss_grad(
-            hr.data_ptr(), sr.data_ptr(), b, h, w, c, stats.data_ptr(),
-            scalars[0].data_ptr(), scalars[1].data_ptr(), dsr.data_ptr(),
-            _stream(hr),
-        )
-    _check_launch(rc, "recon_loss_grad")
+        dsr = _launch_loss_grad(_lib(), hr, sr, stats, g_edge, g_tv, vec, _stream(hr))
     launches["loss_grad"] += 1
+    paths["loss_grad_vec" if vec else "loss_grad_scalar"] += 1
     return dsr
 
 

@@ -1,12 +1,16 @@
-// A CPU stand-in for the part of the CUDA runtime that
-// srgan_tpu_torch/csrc/residual_tower.cu uses, so that g++ can compile the
-// source and the tests can run its kernels on the CPU
-// (tests/test_torch_tower_source.py). Blocks run one at a time; each CUDA
+// A CPU stand-in for the part of the CUDA runtime that the sources of
+// srgan_tpu_torch/csrc/ use, so that g++ can compile them and the tests can
+// run their kernels on the CPU (tests/test_torch_tower_source.py,
+// tests/test_torch_recon_source.py). Blocks run one at a time; each CUDA
 // thread is a std::thread, __syncthreads is a std::barrier over the block,
-// __shfl_xor_sync exchanges through a per-warp slot array. Dynamic shared
+// the warp shuffles exchange through a per-warp slot array. Dynamic shared
 // memory is one static buffer, filled with garbage before every block as
-// the card leaves it. A launch is written `emu_launch(kernel, grid, block,
-// smem, stream, args...)`: the test rewrites each `kernel<<<...>>>(` so.
+// the card leaves it. Static __shared__ arrays need -DEMU_STATIC_SHARED:
+// they become function-level statics, one for all the threads of the
+// running block (a source that declares `extern __shared__`, which cannot
+// be static, is compiled without it). The card has kEmuSms SMs. A launch
+// is written `emu_launch(kernel, grid, block, smem, stream, args...)`: the
+// tests rewrite each `kernel<<<...>>>(` so.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -24,7 +28,11 @@ using std::min;
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#ifdef EMU_STATIC_SHARED
+#define __shared__ static
+#else
 #define __shared__
+#endif
 #define __align__(n) __attribute__((aligned(n)))
 
 struct dim3 {
@@ -40,6 +48,8 @@ typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorLaunchFailure = 4 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+constexpr int kEmuSms = 2;
 
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, blockDim, gridDim;
@@ -52,19 +62,42 @@ alignas(16) inline unsigned char tower_smem[1 << 20];
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 
-template <typename V>
-V __shfl_xor_sync(unsigned, V v, int lane_mask) {
+// v of lane src(lane) of the warp; every lane of the warp must call it
+template <typename V, typename Src>
+V emu_shfl(V v, Src src) {
   const int t = threadIdx.x, w = t / 32, lane = t % 32;
   emu_slots[t] = (double)v;
   emu_warp_barrier[w]->arrive_and_wait();
-  const V r = (V)emu_slots[w * 32 + (lane ^ lane_mask)];
+  const V r = (V)emu_slots[w * 32 + src(lane)];
   emu_warp_barrier[w]->arrive_and_wait();
   return r;
+}
+
+template <typename V>
+V __shfl_xor_sync(unsigned, V v, int lane_mask) {
+  return emu_shfl(v, [&](int l) { return l ^ lane_mask; });
+}
+// a lane with no source lane in the warp gets its own value
+template <typename V>
+V __shfl_up_sync(unsigned, V v, unsigned delta) {
+  return emu_shfl(v, [&](int l) { return l >= (int)delta ? l - (int)delta : l; });
+}
+template <typename V>
+V __shfl_down_sync(unsigned, V v, unsigned delta) {
+  return emu_shfl(v, [&](int l) { return l + (int)delta < 32 ? l + (int)delta : l; });
 }
 
 template <typename K>
 int cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
   emu_smem_limit = bytes;
+  return cudaSuccess;
+}
+inline int cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = kEmuSms;
   return cudaSuccess;
 }
 inline int cudaGetLastError() {

@@ -88,6 +88,94 @@ class TestCudaKernels:
         np.testing.assert_allclose(out[0][:3].numpy(), out[1][:3].numpy(), rtol=1e-4)
 
 
+def _sparse_pair(shape, device, seed=0):
+    """hr black with one bright square an image, sr rough and independent,
+    both on the 1/256 grid: the edges are sparse, so the TV term is live and
+    its gradient takes part (on dense random hr it is relu-gated to 0)."""
+    rng = np.random.default_rng(seed)
+    b, h, w, c = shape
+    k = max(2, h // 6)
+    hr = np.zeros(shape, np.int64)
+    for i in range(b):
+        y, x = rng.integers(0, h - k), rng.integers(0, w - k)
+        hr[i, y:y + k, x:x + k] = rng.integers(128, 256, c)
+    sr = rng.integers(0, 256, shape)
+    return [torch.from_numpy((a / 256.0).astype(np.float32)).to(device) for a in (hr, sr)]
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary: its rows cannot take the vector path."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# C = 1..4; H ragged for the warps' runs of rows; W·C % 4 == 0 (both paths)
+# and != 0 (scalar only); one band or several a row; (3, 70, 257, 3) has a
+# row of 771 floats, (4, 300, 640, 3) a larger image set
+_BAND_CASES = [
+    ((2, 37, 100, 3), "vec"), ((2, 37, 100, 3), "scalar"),
+    ((1, 17, 33, 1), "scalar"), ((3, 70, 257, 3), "scalar"),
+    ((1, 9, 130, 4), "vec"), ((1, 9, 130, 4), "scalar"),
+    ((1, 21, 66, 2), "vec"), ((1, 21, 66, 2), "scalar"),
+    ((4, 300, 640, 3), "vec"),
+]
+
+
+@pytest.mark.cuda
+class TestCudaLossPaths:
+    """K2 and K3 on their vector path (16-byte loads) and scalar path
+    against the plain versions in float64, through the public wrappers.
+    The scalar path of a shape with W·C % 4 == 0 is reached by a
+    misaligned but contiguous copy, as the wrapper picks the path."""
+
+    @pytest.mark.parametrize("shape,path", _BAND_CASES,
+                             ids=[f"{'x'.join(map(str, s))}-{p}" for s, p in _BAND_CASES])
+    def test_paths_match_plain(self, cuda_device, shape, path):
+        hr, sr = _sparse_pair(shape, cuda_device)
+        if path == "scalar" and (shape[2] * shape[3]) % 4 == 0:
+            hr, sr = _misaligned(hr), _misaligned(sr)
+        assert rk.vector_path(hr, sr) == (path == "vec")
+        rk.reset_launches()
+        g_edge = torch.tensor(0.5, device=cuda_device)
+        g_tv = torch.tensor(-2.0, device=cuda_device)
+        stats = rk.edge_stats(hr)
+        e_k, tv_k = rk.loss_sums(hr, sr, stats)
+        dsr = rk.loss_grad(hr, sr, stats, g_edge, g_tv)
+        torch.cuda.synchronize()
+        other = "scalar" if path == "vec" else "vec"
+        assert rk.paths == {f"loss_sums_{path}": 1, f"loss_grad_{path}": 1,
+                            f"loss_sums_{other}": 0, f"loss_grad_{other}": 0}
+
+        hr64, sr64 = hr.cpu().double(), sr.cpu().double()
+        want = rk.edge_stats_plain(hr64)
+        e_p, tv_p = rk.loss_sums_plain(hr64, sr64, want)
+        g_p = rk.loss_grad_plain(hr64, sr64, want, g_edge.cpu().double(),
+                                 g_tv.cpu().double())
+        assert float(want[3]) > 0  # the TV term is live
+        np.testing.assert_allclose(stats.cpu().double().numpy(), want.numpy(), rtol=1e-4)
+        assert float(e_k) == pytest.approx(float(e_p), rel=1e-4)
+        assert float(tv_k) == pytest.approx(float(tv_p), rel=1e-4)
+        err = float((dsr.cpu().double() - g_p).abs().max())
+        assert err <= 1e-3 * float(g_p.abs().max())
+
+    @pytest.mark.parametrize("path", ["vec", "scalar"])
+    def test_two_calls_bit_identical(self, cuda_device, path):
+        hr, sr = _sparse_pair((2, 37, 100, 3), cuda_device, seed=1)
+        if path == "scalar":
+            hr, sr = _misaligned(hr), _misaligned(sr)
+        stats = rk.edge_stats(hr)
+        one = torch.ones((), device=cuda_device)
+        runs = []
+        for _ in range(2):
+            st = stats.clone()
+            runs.append([*rk.loss_sums(hr, sr, st), st, rk.loss_grad(hr, sr, st, one, one)])
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
 def _tower_inputs(shape, n, margin, device):
     """x, dy and TowerParams on ``device``. ``margin``: GN1 scale 0.1 and
     bias 1.0, so GN1's output stays above 0 and the ReLU never clips (see

@@ -21,52 +21,25 @@ fall on either side, so the gradients are held to ||Δ||/||g|| ≤ 1e-2
 """
 
 import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from cuda_emu.emu_build import EMU, compile_lib, compile_source
 from srgan_tpu_torch.ops.cuda import residual_tower_kernel as tk
 
 torch.set_num_threads(1)
 
-REPO = Path(__file__).resolve().parents[1]
-EMU = REPO / "tests" / "cuda_emu"
-
-
-def _compile(src: Path, out: Path) -> ctypes.CDLL:
-    """g++ against the stand-ins; the source's own directory comes first on
-    the include path, so it must not hold the real ``tower_mma.cuh``."""
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("needs g++ to compile the CUDA source for the CPU")
-    subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", f"-I{EMU}",
-         "-o", str(out), str(src)],
-        check=True, capture_output=True,
-    )
-    return ctypes.CDLL(str(out))
-
 
 @pytest.fixture(scope="module")
 def emulated_lib(tmp_path_factory):
-    src = (REPO / "srgan_tpu_torch" / "csrc" / "residual_tower.cu").read_text()
-    # kernel<<<grid, block, smem, stream>>>(args) → emu_launch(kernel, ..., args)
-    src = re.sub(r"([A-Za-z_][\w:<>, ]*?)<<<(.*?)>>>\(",
-                 lambda m: f"emu_launch({m.group(1).strip()}, {m.group(2)}, ",
-                 src, flags=re.S)
-    out = tmp_path_factory.mktemp("tower_emu")
-    (out / "tower.cpp").write_text(src)
-    return tk._bind(_compile(out / "tower.cpp", out / "libtower.so"))
+    return tk._bind(compile_source("residual_tower", tmp_path_factory.mktemp("tower_emu")))
 
 
 @pytest.fixture(scope="module")
 def mma_lib(tmp_path_factory):
-    lib = _compile(EMU / "mma_check.cpp", tmp_path_factory.mktemp("mma_emu") / "libmma.so")
+    lib = compile_lib(EMU / "mma_check.cpp", tmp_path_factory.mktemp("mma_emu") / "libmma.so")
     lib.mma_check.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.mma_check.restype = ctypes.c_int
     return lib
