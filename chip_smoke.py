@@ -6,17 +6,18 @@ Phases, each of which must pass (any failure exits non-zero):
 
   1. build every CUDA source of the port (one ``nvcc`` per source, in
      parallel), print the ``ptxas`` registers, shared memory and spills of
-     every kernel (one summary line for each band kernel of K2 and K3 at
-     C=3) and the card's name and power limit;
+     every kernel (one summary line for each band kernel of K1, K2 and K3
+     at C=3) and the card's name and power limit;
   2. hold each kernel of the training path against its plain PyTorch
      version (float64 for K2 and K3: the TV sum cancels) at the flagship
      loss shape (12, 512, 1024, 3) float32, TF32 off, on inputs whose TV
-     term is live; check that the shape takes K2's and K3's vector path
+     term is live; check that the shape takes each kernel's vector path
      and that two calls of each give the same bits; time each kernel and
      its plain version with CUDA events (the median of 10 windows of 20
      calls), kernel and plain in turns, and each kernel and finalise
      launch by its device time under the profiler, with the GB/s and the
-     share of the bound that gives;
+     share of the bound that gives, and the wrapper's host gap (ms by
+     events minus device ms);
   3. hold one pixel step on the card (kernels) against the same step on
      the CPU (plain versions) at a small size, same weights and batch;
   4. train the flagship configuration (F=64, 16 blocks, 4x subpixel head,
@@ -24,8 +25,8 @@ Phases, each of which must pass (any failure exits non-zero):
      epoch of 3 steps through ``Trainer.train_epoch`` on the device-cache
      path, then ``compute_score`` on one validation batch. The launch
      counts are zeroed just before the counted epoch and read just after:
-     K1, K2 and K3 must each have launched once per step, K2 and K3 on
-     their vector path;
+     K1, K2 and K3 must each have launched once per step, on their
+     vector path;
   5. the residual tower (``residual_tower``, kernels K4 and K5) at the
      flagship tower shape x (12, 128, 256, 64), N=16, in f32 and bf16:
      K4 and K5 against the plain version and its autograd, launch counts
@@ -184,15 +185,14 @@ def loss_ptxas(report: str) -> dict:
     """The band kernels' resources at C=3, by (wrapper, path)."""
     out = {}
     for name, res in ptxas_resources(report).items():
-        m = re.search(r"\d+(loss_sums|grad)_kernelILi3ELb([01])E", name)
+        m = re.search(r"\d+(edge_stats|loss_sums|grad)_kernelILi3ELb([01])E", name)
         if m:
-            wrapper = "loss_sums" if m.group(1) == "loss_sums" else "loss_grad"
+            wrapper = "loss_grad" if m.group(1) == "grad" else m.group(1)
             path = "vec" if m.group(2) == "1" else "scalar"
             out[(wrapper, path)] = res
             print(f"ptxas {m.group(1)}_kernel<3, {path}>: {res[0]} registers, "
                   f"{res[1]} bytes smem, {res[2]} bytes spilled", flush=True)
-    check(set(out) == {(w, p) for w in ("loss_sums", "loss_grad")
-                       for p in ("vec", "scalar")},
+    check(set(out) == {(w, p) for w in LOSS_KERNELS for p in ("vec", "scalar")},
           f"ptxas report lacks band kernels: {sorted(out)}")
     return out
 
@@ -208,6 +208,7 @@ def kernel_phase(rk, dev) -> dict:
     hr, sr = loss_inputs(dev)
     n = hr.numel()
     out = {}
+    rk.reset_launches()
 
     # K1
     st_k = rk.edge_stats(hr)
@@ -223,7 +224,6 @@ def kernel_phase(rk, dev) -> dict:
 
     # K1 + K2 against the whole plain loss, in float64: the TV sum cancels,
     # so two fp32 summation orders already differ by ~1e-4 relative
-    rk.reset_launches()
     e_k, tv_k = rk.loss_sums(hr, sr, st_k)
     hr64, sr64 = hr.double(), sr.double()
     e_p, tv_p = reconstruction_loss_with_edges(hr64, sr64, edge_importance_map(hr64))
@@ -248,8 +248,8 @@ def kernel_phase(rk, dev) -> dict:
     dsr = rk.loss_grad(hr, sr, st_k, one, one)
     torch.cuda.synchronize()
     paths = dict(rk.paths)
-    check(paths == {"loss_sums_vec": 1, "loss_sums_scalar": 0, "loss_grad_vec": 1,
-                    "loss_grad_scalar": 0},
+    check(paths == {f"{name}_{p}": int(p == "vec") for name in LOSS_KERNELS
+                    for p in ("vec", "scalar")},
           f"flagship shape: paths {paths}, expected the vector path")
     err3 = float((dsr.double() - g_ref).abs().max())
     tol3 = 1e-3 * float(g_ref.abs().max())
@@ -263,16 +263,19 @@ def kernel_phase(rk, dev) -> dict:
     )
 
     # two calls bit for bit: fixed sum orders, no float atomics
+    stats = [rk.edge_stats(hr) for _ in range(2)]
     st_a, st_b = st_k.clone(), st_k.clone()
     sums = [rk.loss_sums(hr, sr, st) for st in (st_a, st_b)]
     grads = [rk.loss_grad(hr, sr, st_k, one, one) for _ in range(2)]
     torch.cuda.synchronize()
+    check(torch.equal(*stats) and torch.equal(stats[0][:2], st_k[:2]),
+          "K1: two calls differ")
     check(all(torch.equal(a, b) for a, b in zip(sums[0], sums[1]))
           and torch.equal(st_a, st_b), "K2: two calls differ")
     check(torch.equal(*grads), "K3: two calls differ")
-    del sums, grads, dsr
-    print(f"kernels: flagship paths {paths}; K2 and K3 bit-identical over two "
-          f"calls; tv mean {float(st_k[3]):.6e}", flush=True)
+    del stats, sums, grads, dsr
+    print(f"kernels: flagship paths {paths}; K1, K2 and K3 bit-identical over "
+          f"two calls; tv mean {float(st_k[3]):.6e}", flush=True)
 
     dev_ms = loss_device_times({name: rec["fns"][0] for name, rec in out.items()})
     for name, rec in out.items():
@@ -293,6 +296,9 @@ def kernel_phase(rk, dev) -> dict:
         rec["device_ms"] = dev_ms[kern] + (dev_ms[fin] if fin else 0.0)
         rec["gb_per_s"] = n_bytes / (rec["device_ms"] * 1e-3) / 1e9
         rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        # the wrapper's host cost, as far as back-to-back calls show it
+        rec["host_gap_ms"] = rec["ms"] - rec["device_ms"]
+        rec["path"] = "vec"
         print(f"kernel {name}: max|d|={rec['max_abs_err']:.3e} "
               f"ms={rec['ms']:.4f} (windows {min(win_k):.4f}..{max(win_k):.4f}) "
               f"plain ms={rec['plain_ms']:.4f} (windows "
@@ -302,7 +308,8 @@ def kernel_phase(rk, dev) -> dict:
               + (f" + {fin} {dev_ms[fin]:.4f}" if fin else "")
               + f" = {rec['device_ms']:.4f}: {rec['gb_per_s']:.0f} GB/s, "
               f"{rec['bound_share']:.3f} of the bound "
-              f"(by events {rec['bound_ms'] / rec['ms']:.3f})", flush=True)
+              f"(by events {rec['bound_ms'] / rec['ms']:.3f}); host gap "
+              f"{rec['host_gap_ms']:.4f} ms", flush=True)
     return out
 
 
@@ -386,7 +393,7 @@ def training_phase(rk, dev) -> dict:
         check(math.isfinite(m[k]) and math.isfinite(warm[k]), f"{k} not finite")
     for name, c in counts.items():
         check(c == steps, f"{name} launched {c} times in {steps} steps")
-    for name in ("loss_sums", "loss_grad"):
+    for name in LOSS_KERNELS:
         check(paths[f"{name}_vec"] == steps and paths[f"{name}_scalar"] == 0,
               f"{name}: paths {paths}, expected the vector path every step")
     check(math.isfinite(psnr) and math.isfinite(ssim), "validation score not finite")
@@ -708,7 +715,6 @@ def main() -> int:
             "replaces": TPU_KERNELS[name],
             "launches": counts[name],
             **rec,
-            "path": "vec" if name != "edge_stats" else None,
             "registers": regs[0] if regs else None,
             "spill_bytes": regs[2] if regs else None,
             "library_ms": None,  # no single PyTorch call computes it

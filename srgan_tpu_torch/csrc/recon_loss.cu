@@ -23,20 +23,17 @@
 //   K2      151 MB  (hr, sr)            ~45 us
 //   K3      226.5 MB (hr, sr, dsr out)  ~68 us
 //
-// K1 takes a (row strip x column tile) of one image a block, staged in
-// shared memory in the global NHWC order with a 1-cell halo, so the rows
-// it reads are contiguous and coalesced and no plane transpose or padding
-// copy is made.
-//
-// K2 and K3 are streaming row-band stencils. Staged 2-D tiles held them at
+// All three are streaming row-band stencils. Staged 2-D tiles held them at
 // a third of their bound: scalar loads issued only in a staging phase (no
-// loads in flight while a block computed or reduced), ~20 (K2) and ~37
-// (K3) shared-memory accesses an element, above what the SM's 32 words a
-// clock serve at the bound, and 1.16x / 1.41x halo cells. Here:
+// loads in flight while a block computed or reduced), a 256-thread barrier
+// tree in every block (K1: 6,144 of them, and a finalise over as many
+// partials), ~20 (K2) and ~37 (K3) shared-memory accesses an element, above
+// what the SM's 32 words a clock serve at the bound, and 1.16x / 1.41x
+// halo cells. Here:
 //   - A warp owns a band of 32 float4 columns of the flat NHWC row (W*C
 //     floats), one float4 a lane, and walks down a run of rows. It reads
 //     each input row once, by 16-byte loads straight into registers,
-//     three rows in flight beyond the three it computes on.
+//     rows in flight beyond the three it computes on (K2, K3: 3; K1: 7).
 //   - Registers carry the vertical window: each lane keeps rows y-1, y, y+1
 //     of its 4 floats in a ring of register slots, each new row in the
 //     slot of the row it no longer needs, the loop unrolled around the
@@ -45,32 +42,41 @@
 //     rows; Sobel-y: row y+1 minus row y-1) and a horizontal pass over the
 //     neighbours +-C floats away (the adjacent pixel, C <= 4), which come
 //     from the lane itself or from the adjacent lane by __shfl_up/down.
-//     Per element: ~4.5 shuffles in K2 (three column sums), ~6 in K3 (and
-//     the field's), no shared memory.
+//     Per element: ~3 shuffles in K1 (two column sums), ~4.5 in K2 (three),
+//     ~6 in K3 (and the field's), no shared memory. The three share one
+//     Sobel (raw_edge).
+//   - K1 reads one tensor where K2 and K3 read two, so with the same ring
+//     it would keep half their bytes in flight: ~25 KB an SM at 3 rows
+//     ahead and 16 warps, about what 3.35 TB/s needs at ~1 us of loaded
+//     DRAM latency. Its ring depth and blocks an SM (kStatsSlots,
+//     kStatsBlocksPerSm) are its own: 10 slots, ~56 KB an SM. Timed side
+//     by side on an H100 (scripts/torch_k1_variants.py), 8-12 slots and 6
+//     slots at 6 blocks an SM land within 1.5 % of each other, 6 slots at
+//     4 blocks 4 % slower, 2-3 blocks an SM (longer runs) 2-17 % slower.
 //   - K3 forms the field sign(DIFF*sr)*(1-e) of row y when input row y+1
 //     arrives, keeps three field rows and e of the row before in
 //     registers, and writes dsr row y-1 with 16-byte stores: no second
 //     pass and no ring recompute.
-//   - Bands overlap by halo lanes: one a side in K2 (its stencils reach one
-//     lane), two in K3 (the field's stencil on top of the inputs'). The
-//     warp's end lanes read past it and give garbage; the halo lanes only
-//     feed their neighbours. The vertical halo is 2 (K2) or 4 (K3) rows a
-//     run of ~80 rows.
-//   - The launch fills the card once: kBlocksPerSm blocks of kBandWarps
-//     warps an SM (__launch_bounds__ guarantees they fit). Each band's
-//     B*H rows are cut into equal runs, one a warp, a run crossing into
-//     the next image where it must; consecutive warps take adjacent bands
-//     of the same rows. No tail wave.
+//   - Bands overlap by halo lanes: one a side in K1 and K2 (their stencils
+//     reach one lane), two in K3 (the field's stencil on top of the
+//     inputs'). The warp's end lanes read past it and give garbage; the
+//     halo lanes only feed their neighbours. The vertical halo is 2 (K1,
+//     K2) or 4 (K3) rows a run of ~40-80 rows.
+//   - The launch fills the card once: kBlocksPerSm (K1: kStatsBlocksPerSm)
+//     blocks of kBandWarps warps an SM (__launch_bounds__ guarantees they
+//     fit). Each band's B*H rows are cut into equal runs, one a warp, a
+//     run crossing into the next image where it must; consecutive warps
+//     take adjacent bands of the same rows. No tail wave.
 //   - Rows must start 16-byte aligned for the float4 path ((W*C) % 4 == 0
 //     and 16-byte aligned tensors); other inputs take the same kernel with
 //     scalar loads and stores (VEC = false). The caller picks; the entry
 //     points refuse the vector path on misaligned input.
-// Sums: each lane adds its row's fp32 sums to fp64 accumulators every row;
-// then a fixed-order shuffle tree, one shared pass over the block's warps,
-// and one partial a block; a one-block finalise launch sums the partials
-// in a fixed order. No float atomics: two calls give the same bits. The
-// scalars stay on the device (no host sync); K3 reads c_edge and c_tv from
-// the incoming gradients in device memory.
+// Sums (K1, K2): each lane adds its row's fp32 sums to fp64 accumulators
+// every row; then a fixed-order shuffle tree, one shared pass over the
+// block's warps, and one partial a block; a one-block finalise launch sums
+// the ~530 partials in a fixed order. No float atomics: two calls give the
+// same bits. The scalars stay on the device (no host sync); K3 reads c_edge
+// and c_tv from the incoming gradients in device memory.
 //
 // Plain C interface for ctypes (srgan_tpu_torch/ops/cuda/recon_loss_kernel.py).
 // Every entry point returns cudaGetLastError() after its launches.
@@ -80,49 +86,14 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 #include <initializer_list>
 #include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kFwdTileH = 16;
-constexpr int kFwdTileW = 64;
+constexpr int kThreads = 256;  // a finalise block
 constexpr int kMaxChannels = 4;
-
-// Stage rows [gy0, gy0+ROWS) x columns [gx0, gx0+COLS) of image b, all C
-// channels, into shared memory in the NHWC order: row r holds COLS*C
-// floats. Cells outside the image are zero (the stencils' zero padding).
-// C and the tile sizes are compile-time, so every index division below is
-// a multiply-shift.
-template <int C, int ROWS, int COLS>
-__device__ void stage_tile(float* __restrict__ s, const float* __restrict__ g,
-                           int b, int H, int W, int gy0, int gx0) {
-  constexpr int rw = COLS * C;
-  for (int i = threadIdx.x; i < ROWS * rw; i += kThreads) {
-    const int r = i / rw;
-    const int j = i - r * rw;
-    const int gy = gy0 + r;
-    const int gx = gx0 + j / C;
-    float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      v = g[((int64_t)b * H + gy) * (int64_t)W * C + (int64_t)gx0 * C + j];
-    }
-    s[i] = v;
-  }
-}
-
-// p points at a centre cell; RS is the row stride and C the column stride.
-template <int C, int RS>
-__device__ __forceinline__ float sobel_edge(const float* p) {
-  const float a00 = p[-RS - C], a01 = p[-RS], a02 = p[-RS + C];
-  const float a10 = p[-C], a12 = p[C];
-  const float a20 = p[RS - C], a21 = p[RS], a22 = p[RS + C];
-  // SOBEL_X rows are (-5, 0, 5); SOBEL_Y is its transpose
-  const float gx = 5.f * ((a02 - a00) + (a12 - a10) + (a22 - a20));
-  const float gy = 5.f * ((a20 - a00) + (a21 - a01) + (a22 - a02));
-  return fmaxf(fabsf(gx), fabsf(gy));
-}
 
 // (e - mean) / std * 0.2 + 1, clipped to [0, 2]; scale = 0.2 / std, so
 // that the per-element division becomes a multiply
@@ -153,9 +124,7 @@ __device__ void block_sum(double (&v)[K]) {
 template <int K>
 __device__ void store_partials(double* partials, const double (&v)[K]) {
   if (threadIdx.x == 0) {
-    const int64_t blk =
-        ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    for (int k = 0; k < K; ++k) partials[blk * K + k] = v[k];
+    for (int k = 0; k < K; ++k) partials[(int64_t)blockIdx.x * K + k] = v[k];
   }
 }
 
@@ -169,65 +138,29 @@ __device__ void sum_partials(const double* partials, int n_blocks,
   block_sum<K>(v);
 }
 
-// ---------------------------------------------------------------- K1 ----
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-edge_stats_kernel(const float* __restrict__ hr, int H, int W,
-                  double* __restrict__ partials) {
-  constexpr int RS = (kFwdTileW + 2) * C;
-  constexpr int TW = kFwdTileW * C;
-  __shared__ float s_hr[(kFwdTileH + 2) * RS];
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kFwdTileH;
-  const int x0 = blockIdx.x * kFwdTileW;
-  stage_tile<C, kFwdTileH + 2, kFwdTileW + 2>(s_hr, hr, b, H, W, y0 - 1, x0 - 1);
-  __syncthreads();
-
-  float s1 = 0.f, s2 = 0.f;
-  for (int i = threadIdx.x; i < kFwdTileH * TW; i += kThreads) {
-    const int r = i / TW;
-    const int j = i - r * TW;
-    if (y0 + r >= H || x0 + j / C >= W) continue;
-    const float e = sobel_edge<C, RS>(s_hr + (r + 1) * RS + C + j);
-    s1 += e;
-    s2 += e * e;
-  }
-  double v[2] = {s1, s2};
-  block_sum<2>(v);
-  store_partials<2>(partials, v);
-}
-
-// stats = [mean, std, sum(e_normalized), tv mean]; K1 fills the first two
-// and zeroes the rest.
-__global__ void __launch_bounds__(kThreads)
-edge_stats_finalize(const double* __restrict__ partials, int n_blocks,
-                    double count, float* __restrict__ stats) {
-  double v[2];
-  sum_partials<2>(partials, n_blocks, v);
-  if (threadIdx.x == 0) {
-    const double mean = v[0] / count;
-    const double var = (v[1] - count * mean * mean) / (count - 1.0);
-    stats[0] = (float)mean;
-    stats[1] = (float)sqrt(fmax(var, 0.0));
-    stats[2] = 0.f;
-    stats[3] = 0.f;
-  }
-}
-
-// ------------------------------------------------ K2 and K3: row bands ----
+// ------------------------------------------------------------ row bands ----
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBandWarps = 4;                  // warps a block
 constexpr int kBandThreads = 32 * kBandWarps;
-constexpr int kBlocksPerSm = 4;                // resident: <= 128 registers
+constexpr int kBlocksPerSm = 4;                // K2, K3 resident: <= 128 registers
 // Input rows a lane holds: the window y-1, y, y+1 and the kSlots - 3 rows
 // after it, in flight. They sit in a ring of registers, row r in slot
 // (r - first row) % kSlots, and the row loop is unrolled kSlots steps, so
 // every index is a constant and no register moves shift the window.
-constexpr int kSlots = 6;
+constexpr int kSlots = 6;                      // K2, K3
+// K1's own: one input ring, so more rows in flight. A build may set them
+// (-DK1_SLOTS=, -DK1_BLOCKS_PER_SM=) to time variants side by side.
+#ifndef K1_SLOTS
+#define K1_SLOTS 10
+#endif
+#ifndef K1_BLOCKS_PER_SM
+#define K1_BLOCKS_PER_SM 4
+#endif
+constexpr int kStatsSlots = K1_SLOTS;
+constexpr int kStatsBlocksPerSm = K1_BLOCKS_PER_SM;
 constexpr int kMinRun = 8;                     // rows a warp, at least
-constexpr int kSumsHalo = 1;                   // halo lanes a side: K2
+constexpr int kSumsHalo = 1;                   // halo lanes a side: K1, K2
 constexpr int kGradHalo = 2;                   // K3
 
 // A lane's 4 consecutive floats of one row.
@@ -297,6 +230,29 @@ __device__ __forceinline__ void row_neighbours(const V4& x, V4& l, V4& r) {
   }
 }
 
+// The raw Sobel edge map max(|Kx*hr|, |Ky*hr|) of the centre row of the
+// window (rows a, b, c of hr), per float. Two column sums cross lanes.
+template <int C>
+__device__ __forceinline__ V4 raw_edge(const V4& ha, const V4& hb, const V4& hc) {
+  V4 sh, dh;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    sh.v[k] = ha.v[k] + hb.v[k] + hc.v[k];
+    dh.v[k] = hc.v[k] - ha.v[k];
+  }
+  V4 shl, shr, dhl, dhr, e;
+  row_neighbours<C>(sh, shl, shr);
+  row_neighbours<C>(dh, dhl, dhr);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // SOBEL_X rows are (-5, 0, 5); SOBEL_Y is its transpose
+    const float gx = 5.f * (shr.v[k] - shl.v[k]);
+    const float gy = 5.f * (dhl.v[k] + dh.v[k] + dhr.v[k]);
+    e.v[k] = fmaxf(fabsf(gx), fabsf(gy));
+  }
+  return e;
+}
+
 // Per float of the centre row of the window (rows a, b, c of hr and sr):
 // the normalised edge map e and DIFF*sr. Three column sums cross lanes.
 template <int C>
@@ -305,27 +261,55 @@ __device__ __forceinline__ void edge_and_diff(const V4& ha, const V4& hb,
                                               const V4& sb, const V4& sc,
                                               float mean, float scale, V4& e,
                                               V4& d) {
-  V4 sh, dh, ss;
+  e = raw_edge<C>(ha, hb, hc);
+  V4 ss, ssl, ssr;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    sh.v[k] = ha.v[k] + hb.v[k] + hc.v[k];
-    dh.v[k] = hc.v[k] - ha.v[k];
-    ss.v[k] = sa.v[k] + sb.v[k] + sc.v[k];
-  }
-  V4 shl, shr, dhl, dhr, ssl, ssr;
-  row_neighbours<C>(sh, shl, shr);
-  row_neighbours<C>(dh, dhl, dhr);
+  for (int k = 0; k < 4; ++k) ss.v[k] = sa.v[k] + sb.v[k] + sc.v[k];
   row_neighbours<C>(ss, ssl, ssr);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    // SOBEL_X rows are (-5, 0, 5); SOBEL_Y is its transpose
-    const float gx = 5.f * (shr.v[k] - shl.v[k]);
-    const float gy = 5.f * (dhl.v[k] + dh.v[k] + dhr.v[k]);
-    e.v[k] = normalize_edge(fmaxf(fabsf(gx), fabsf(gy)), mean, scale);
+    e.v[k] = normalize_edge(e.v[k], mean, scale);
     // DIFF_KERNEL: unit centre, -1/8 on the 8 neighbours
     const float ring = (ssl.v[k] + ssr.v[k]) + (sa.v[k] + sc.v[k]);
     d.v[k] = sb.v[k] - 0.125f * ring;
   }
+}
+
+// The block's totals of v in thread 0, in a fixed order: a shuffle tree in
+// each warp, then the warps in turn.
+template <int K>
+__device__ __forceinline__ void band_block_sum(double (&v)[K]) {
+  __shared__ double red[kBandWarps][K];
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(kFull, v[k], m);
+  }
+  if (threadIdx.x % 32 == 0) {
+    for (int k = 0; k < K; ++k) red[threadIdx.x / 32][k] = v[k];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < K; ++k) {
+      for (int i = 1; i < kBandWarps; ++i) v[k] += red[i][k];
+    }
+  }
+}
+
+// The current device's SM count, asked of the runtime once a device.
+int sm_count() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> counts[kMaxDevices];  // 0: not asked yet
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  if (cached) sms = counts[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    sms = std::max(sms, 1);
+    if (cached) counts[dev].store(sms, std::memory_order_relaxed);
+  }
+  return sms;
 }
 
 // Each band's B*H rows (its images one after another) cut into equal
@@ -338,18 +322,23 @@ struct Runs {
   int bands;
 };
 
-Runs band_runs(int B, int H, int W, int C, int halo) {
+Runs band_runs(int B, int H, int W, int C, int halo, int blocks_per_sm) {
   const int64_t vecs = ((int64_t)W * C + 3) / 4;
   const int64_t bands = (vecs + 31 - 2 * halo) / (32 - 2 * halo);
   const int64_t rows = (int64_t)B * H;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t warps = (int64_t)std::max(sms, 1) * kBlocksPerSm * kBandWarps;
+  const int64_t warps = (int64_t)sm_count() * blocks_per_sm * kBandWarps;
   const int64_t runs = std::max<int64_t>(1, warps / bands);
   const int64_t run = std::max<int64_t>(kMinRun, (rows + runs - 1) / runs);
   const int64_t used = bands * ((rows + run - 1) / run);
   return {(int)((used + kBandWarps - 1) / kBandWarps), (int)run, (int)bands};
+}
+
+Runs stats_runs(int B, int H, int W, int C) {
+  return band_runs(B, H, W, C, kSumsHalo, kStatsBlocksPerSm);
+}
+
+Runs sums_runs(int B, int H, int W, int C) {
+  return band_runs(B, H, W, C, kSumsHalo, kBlocksPerSm);
 }
 
 // Walks the warp's run of rows: calls seg(band, image, y0, y1) for each
@@ -371,6 +360,81 @@ __device__ __forceinline__ void for_each_stretch(int B, int H, int run,
   }
 }
 
+// Whether a lane of band-position q, in a warp with halo lanes a side,
+// owns each of its 4 floats of a row of rw floats.
+__device__ __forceinline__ void owned(int lane, int halo, int q, int rw,
+                                      bool (&own)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    own[k] = lane >= halo && lane < 32 - halo && q >= 0 && 4 * q + k < rw;
+  }
+}
+
+// ---------------------------------------------------------------- K1 ----
+
+template <int C, bool VEC>
+__global__ void __launch_bounds__(kBandThreads, kStatsBlocksPerSm)
+edge_stats_kernel(const float* __restrict__ hr, int B, int H, int W, int run,
+                  int bands, double* __restrict__ partials) {
+  constexpr int kOut = 32 - 2 * kSumsHalo;
+  const int lane = threadIdx.x % 32;
+  const int rw = W * C;
+  double v[2] = {0.0, 0.0};
+  for_each_stretch(B, H, run, bands, [&](int band, int b, int y0, int y1) {
+    const int q = band * kOut - kSumsHalo + lane;
+    bool own[4];
+    owned(lane, kSumsHalo, q, rw, own);
+    const float* hb = hr + (int64_t)b * H * rw;
+    const int last = min(y1, H - 1);
+    // slot i: row y0 - 1 + i, then every kStatsSlots rows on
+    V4 h[kStatsSlots];
+#pragma unroll
+    for (int i = 0; i < kStatsSlots; ++i) {
+      h[i] = load_row<VEC>(hb, y0 - 1 + i, last, q, rw);
+    }
+    for (int y0s = y0; y0s < y1; y0s += kStatsSlots) {
+#pragma unroll
+      for (int i = 0; i < kStatsSlots; ++i) {
+        const int y = y0s + i;
+        if (y >= y1) break;
+        const V4 e = raw_edge<C>(h[i], h[(i + 1) % kStatsSlots],
+                                 h[(i + 2) % kStatsSlots]);
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (own[k]) {
+            s1 += e.v[k];
+            s2 += e.v[k] * e.v[k];
+          }
+        }
+        v[0] += s1;
+        v[1] += s2;
+        // row y-1 is done with: its slot takes row y-1+kStatsSlots
+        h[i] = load_row<VEC>(hb, y - 1 + kStatsSlots, last, q, rw);
+      }
+    }
+  });
+  band_block_sum<2>(v);
+  store_partials<2>(partials, v);
+}
+
+// stats = [mean, std, sum(e_normalized), tv mean]; K1 fills the first two
+// and zeroes the rest.
+__global__ void __launch_bounds__(kThreads)
+edge_stats_finalize(const double* __restrict__ partials, int n_blocks,
+                    double count, float* __restrict__ stats) {
+  double v[2];
+  sum_partials<2>(partials, n_blocks, v);
+  if (threadIdx.x == 0) {
+    const double mean = v[0] / count;
+    const double var = (v[1] - count * mean * mean) / (count - 1.0);
+    stats[0] = (float)mean;
+    stats[1] = (float)sqrt(fmax(var, 0.0));
+    stats[2] = 0.f;
+    stats[3] = 0.f;
+  }
+}
+
 // ---------------------------------------------------------------- K2 ----
 
 template <int C, bool VEC>
@@ -386,11 +450,7 @@ loss_sums_kernel(const float* __restrict__ hr, const float* __restrict__ sr,
   for_each_stretch(B, H, run, bands, [&](int band, int b, int y0, int y1) {
     const int q = band * kOut - kSumsHalo + lane;
     bool own[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      own[k] = lane >= kSumsHalo && lane < 32 - kSumsHalo && q >= 0 &&
-               4 * q + k < rw;
-    }
+    owned(lane, kSumsHalo, q, rw, own);
     const int64_t plane = (int64_t)b * H * rw;
     const float* hb = hr + plane;
     const float* sb = sr + plane;
@@ -428,23 +488,7 @@ loss_sums_kernel(const float* __restrict__ hr, const float* __restrict__ sr,
       }
     }
   });
-
-  // fixed order: a shuffle tree in each warp, then the warps in turn
-  __shared__ double red[kBandWarps][3];
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) v[k] += __shfl_xor_sync(kFull, v[k], m);
-  }
-  if (lane == 0) {
-    for (int k = 0; k < 3; ++k) red[threadIdx.x / 32][k] = v[k];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < 3; ++k) {
-      for (int i = 1; i < kBandWarps; ++i) v[k] += red[i][k];
-    }
-  }
+  band_block_sum<3>(v);
   store_partials<3>(partials, v);
 }
 
@@ -543,16 +587,6 @@ grad_kernel(const float* __restrict__ hr, const float* __restrict__ sr,
 
 // ------------------------------------------------------------- host ----
 
-dim3 fwd_grid(int B, int H, int W) {
-  return dim3((W + kFwdTileW - 1) / kFwdTileW, (H + kFwdTileH - 1) / kFwdTileH,
-              B);
-}
-
-int fwd_blocks(int B, int H, int W) {
-  const dim3 g = fwd_grid(B, H, W);
-  return (int)(g.x * g.y * g.z);
-}
-
 // The float4 path needs every row to start 16-byte aligned.
 bool vector_rows(int W, int C, std::initializer_list<const void*> ptrs) {
   if ((W * C) % 4) return false;
@@ -582,25 +616,33 @@ int with_channels(int B, int H, int W, int C, Fn&& fn) {
 extern "C" {
 
 // Blocks of K1: its partials buffer holds 2 doubles per block.
-int recon_fwd_blocks(int B, int H, int W) { return fwd_blocks(B, H, W); }
+int recon_stats_blocks(int B, int H, int W, int C) {
+  return stats_runs(B, H, W, C).blocks;
+}
 
 // Blocks of K2: its partials buffer holds 3 doubles per block.
 int recon_sums_blocks(int B, int H, int W, int C) {
-  return band_runs(B, H, W, C, kSumsHalo).blocks;
+  return sums_runs(B, H, W, C).blocks;
 }
 
 const char* recon_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int recon_edge_stats(const float* hr, int B, int H, int W, int C,
+// vec: 1 for the float4 path (refused unless vector_rows), 0 for scalar
+// loads; the partials buffer holds recon_stats_blocks * 2 doubles.
+int recon_edge_stats(const float* hr, int B, int H, int W, int C, int vec,
                      double* partials, float* stats, cudaStream_t stream) {
+  if (vec && !vector_rows(W, C, {hr})) return (int)cudaErrorInvalidValue;
   const double count = (double)B * H * W * C;
   return with_channels(B, H, W, C, [&](auto c) {
-    auto kernel = edge_stats_kernel<decltype(c)::value>;
-    kernel<<<fwd_grid(B, H, W), kThreads, 0, stream>>>(hr, H, W, partials);
-    edge_stats_finalize<<<1, kThreads, 0, stream>>>(
-        partials, fwd_blocks(B, H, W), count, stats);
+    constexpr int kC = decltype(c)::value;
+    const Runs runs = stats_runs(B, H, W, kC);
+    auto kernel = vec ? edge_stats_kernel<kC, true> : edge_stats_kernel<kC, false>;
+    kernel<<<runs.blocks, kBandThreads, 0, stream>>>(hr, B, H, W, runs.rows,
+                                                     runs.bands, partials);
+    edge_stats_finalize<<<1, kThreads, 0, stream>>>(partials, runs.blocks, count,
+                                                    stats);
   });
 }
 
@@ -613,7 +655,7 @@ int recon_loss_sums(const float* hr, const float* sr, int B, int H, int W,
   const double count = (double)B * H * W * C;
   return with_channels(B, H, W, C, [&](auto c) {
     constexpr int kC = decltype(c)::value;
-    const Runs runs = band_runs(B, H, W, kC, kSumsHalo);
+    const Runs runs = sums_runs(B, H, W, kC);
     auto kernel = vec ? loss_sums_kernel<kC, true> : loss_sums_kernel<kC, false>;
     kernel<<<runs.blocks, kBandThreads, 0, stream>>>(
         hr, sr, B, H, W, runs.rows, runs.bands, stats, partials);
@@ -629,7 +671,7 @@ int recon_loss_grad(const float* hr, const float* sr, int B, int H, int W,
   const float count = (float)((double)B * H * W * C);
   return with_channels(B, H, W, C, [&](auto c) {
     constexpr int kC = decltype(c)::value;
-    const Runs runs = band_runs(B, H, W, kC, kGradHalo);
+    const Runs runs = band_runs(B, H, W, kC, kGradHalo, kBlocksPerSm);
     auto kernel = vec ? grad_kernel<kC, true> : grad_kernel<kC, false>;
     kernel<<<runs.blocks, kBandThreads, 0, stream>>>(
         hr, sr, B, H, W, runs.rows, runs.bands, count, stats, g_edge, g_tv,

@@ -13,15 +13,16 @@ device, so the forward makes no host sync.
 Each wrapper launches its kernel for CUDA tensors, adds one to its count in
 ``launches`` there, and raises if the launch fails; for CPU tensors it runs
 its plain version (``*_plain`` below, built from ``ops.recon_loss``). No
-path falls back from the kernel to the plain version. K2 and K3 take their
+path falls back from the kernel to the plain version. Each kernel takes its
 16-byte path where every row starts 16-byte aligned (``vector_path``) and
-their scalar path otherwise, counted in ``paths``. The ``_launch_*``
+its scalar path otherwise, counted in ``paths``. The ``_launch_*``
 functions do the launches for a given library, the card's or a CPU build
 of the source (``tests/test_torch_recon_source.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Tuple
@@ -33,12 +34,12 @@ from srgan_tpu_torch.ops.filters import DIFF_KERNEL, depthwise_conv3x3, sobel_ed
 from srgan_tpu_torch.ops.recon_loss import normalize_edges
 
 # Launches of each kernel on the card (finalise launches included with
-# their kernel); CPU calls do not count. ``paths`` splits K2's and K3's by
-# the path they took: ``_vec`` the 16-byte loads, ``_scalar`` the others.
+# their kernel); CPU calls do not count. ``paths`` splits them by the path
+# they took: ``_vec`` the 16-byte loads, ``_scalar`` the others.
 launches = {"edge_stats": 0, "loss_sums": 0, "loss_grad": 0}
-paths = {"loss_sums_vec": 0, "loss_sums_scalar": 0,
-         "loss_grad_vec": 0, "loss_grad_scalar": 0}
-MAX_CHANNELS = 4  # kMaxChannels in the source: bounds the shared memory
+paths = {f"{name}_{path}": 0 for name in launches for path in ("vec", "scalar")}
+MAX_CHANNELS = 4  # kMaxChannels in the source: a pixel's neighbour lies
+                  # in the same or the adjacent lane's float4
 
 
 def reset_launches() -> None:
@@ -49,13 +50,13 @@ def reset_launches() -> None:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.recon_fwd_blocks.argtypes = [I, I, I]
-    lib.recon_fwd_blocks.restype = I
+    lib.recon_stats_blocks.argtypes = [I, I, I, I]
+    lib.recon_stats_blocks.restype = I
     lib.recon_sums_blocks.argtypes = [I, I, I, I]
     lib.recon_sums_blocks.restype = I
     lib.recon_error_string.argtypes = [I]
     lib.recon_error_string.restype = ctypes.c_char_p
-    lib.recon_edge_stats.argtypes = [P, I, I, I, I, P, P, P]
+    lib.recon_edge_stats.argtypes = [P, I, I, I, I, I, P, P, P]
     lib.recon_edge_stats.restype = I
     lib.recon_loss_sums.argtypes = [P, P, I, I, I, I, I, P, P, P, P, P]
     lib.recon_loss_sums.restype = I
@@ -93,15 +94,36 @@ def _check(*tensors: torch.Tensor) -> None:
 
 
 def vector_path(*tensors: torch.Tensor) -> bool:
-    """Whether K2 / K3 take their 16-byte path for these contiguous NHWC
+    """Whether K1-K3 take their 16-byte path for these contiguous NHWC
     tensors: every row starts 16-byte aligned, i.e. W·C % 4 == 0 and each
     tensor's data 16-byte aligned. Others take the scalar path."""
     _, _, w, c = tensors[0].shape
     return (w * c) % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+# A wrapper's host cost a call sits beside K1's ~0.03 ms on the card, so
+# the two helpers below take the cheap routes: the raw handle of the
+# current stream, as PyTorch's generated code reads it (a Stream object
+# costs ~5 µs more), and the device guard only where another device is
+# current (~3 µs).
+
+
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _on_device(t: torch.Tensor):
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks(lib, query: str, device: torch.device, shape: torch.Size) -> int:
+    """A launch's block count (the size of its partials) from the library's
+    ``query`` (``recon_stats_blocks``, ``recon_sums_blocks``): it depends on
+    the shape and the device's SM count only, so it is asked once each."""
+    return getattr(lib, query)(*shape)
 
 
 # -------------------------------------------------------- plain versions --
@@ -137,14 +159,15 @@ def loss_grad_plain(hr, sr, stats, g_edge, g_tv) -> torch.Tensor:
 # stream (0 there).
 
 
-def _launch_edge_stats(lib, hr, stream: int) -> torch.Tensor:
+def _launch_edge_stats(lib, hr, vec: bool, stream: int) -> torch.Tensor:
     """K1 + finalise; returns ``stats``."""
     b, h, w, c = hr.shape
-    partials = torch.empty(lib.recon_fwd_blocks(b, h, w) * 2, dtype=torch.float64,
-                           device=hr.device)
-    stats = torch.empty(4, dtype=torch.float32, device=hr.device)
-    rc = lib.recon_edge_stats(hr.data_ptr(), b, h, w, c, partials.data_ptr(),
-                              stats.data_ptr(), stream)
+    # one allocation: the partials, then stats (4 floats in 2 doubles)
+    n = _blocks(lib, "recon_stats_blocks", hr.device, hr.shape) * 2
+    buf = torch.empty(n + 2, dtype=torch.float64, device=hr.device)
+    partials, stats = buf[:n], buf[n:].view(torch.float32)
+    rc = lib.recon_edge_stats(hr.data_ptr(), b, h, w, c, int(vec),
+                              partials.data_ptr(), stats.data_ptr(), stream)
     _raise_if_failed(lib, rc, "recon_edge_stats")
     return stats
 
@@ -152,10 +175,11 @@ def _launch_edge_stats(lib, hr, stream: int) -> torch.Tensor:
 def _launch_loss_sums(lib, hr, sr, stats, vec: bool, stream: int):
     """K2 + finalise; returns ``(edge_loss, tv_loss)`` and writes ``stats[2:4]``."""
     b, h, w, c = hr.shape
-    partials = torch.empty(lib.recon_sums_blocks(b, h, w, c) * 3,
-                           dtype=torch.float64, device=hr.device)
-    edge_loss = torch.empty((), dtype=torch.float32, device=hr.device)
-    tv_loss = torch.empty((), dtype=torch.float32, device=hr.device)
+    # one allocation: the partials, then the two losses (2 floats in a double)
+    n = _blocks(lib, "recon_sums_blocks", hr.device, hr.shape) * 3
+    buf = torch.empty(n + 1, dtype=torch.float64, device=hr.device)
+    partials = buf[:n]
+    edge_loss, tv_loss = buf[n:].view(torch.float32)
     rc = lib.recon_loss_sums(
         hr.data_ptr(), sr.data_ptr(), b, h, w, c, int(vec), partials.data_ptr(),
         stats.data_ptr(), edge_loss.data_ptr(), tv_loss.data_ptr(), stream,
@@ -190,9 +214,11 @@ def edge_stats(hr: torch.Tensor) -> torch.Tensor:
     if not hr.is_cuda:
         return edge_stats_plain(hr)
     _check(hr)
-    with torch.cuda.device(hr.device):
-        stats = _launch_edge_stats(_lib(), hr, _stream(hr))
+    vec = vector_path(hr)
+    with _on_device(hr):
+        stats = _launch_edge_stats(_lib(), hr, vec, _stream(hr))
     launches["edge_stats"] += 1
+    paths["edge_stats_vec" if vec else "edge_stats_scalar"] += 1
     return stats
 
 
@@ -202,7 +228,7 @@ def loss_sums(hr, sr, stats) -> Tuple[torch.Tensor, torch.Tensor]:
         return loss_sums_plain(hr, sr, stats)
     _check(hr, sr)
     vec = vector_path(hr, sr)
-    with torch.cuda.device(hr.device):
+    with _on_device(hr):
         out = _launch_loss_sums(_lib(), hr, sr, stats, vec, _stream(hr))
     launches["loss_sums"] += 1
     paths["loss_sums_vec" if vec else "loss_sums_scalar"] += 1
@@ -215,7 +241,7 @@ def loss_grad(hr, sr, stats, g_edge, g_tv) -> torch.Tensor:
         return loss_grad_plain(hr, sr, stats, g_edge, g_tv)
     _check(hr, sr)
     vec = vector_path(hr, sr)  # dsr is a fresh, aligned allocation
-    with torch.cuda.device(hr.device):
+    with _on_device(hr):
         dsr = _launch_loss_grad(_lib(), hr, sr, stats, g_edge, g_tv, vec, _stream(hr))
     launches["loss_grad"] += 1
     paths["loss_grad_vec" if vec else "loss_grad_scalar"] += 1

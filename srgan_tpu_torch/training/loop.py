@@ -8,7 +8,8 @@ card (one host fetch per batch, the JAX loop's lagged drain).
 
 Not ported yet (each raises or is absent, with its ROADMAP.md item):
 generator pools, the GAN phase, the perceptual term, checkpoints,
-``validate``, ``train()`` and the CLI.
+``validate``, ``train()``, ``debug_nans`` and the CLI. Configs that the JAX
+``Trainer`` refuses raise the same ``ValueError`` here.
 """
 
 from __future__ import annotations
@@ -37,6 +38,29 @@ def _epoch_generator(device: torch.device, seed: int, epoch: int) -> torch.Gener
 
 class Trainer:
     def __init__(self, cfg: Config, device=None):
+        # the JAX Trainer's refusals, before any device work
+        if cfg.train.stop_sync_every_batches < 1:
+            raise ValueError(
+                "TrainConfig.stop_sync_every_batches must be >= 1 (it is a "
+                "batch modulus; multi-process runs sync the preemption stop "
+                f"at every Nth boundary), got {cfg.train.stop_sync_every_batches}"
+            )
+        if cfg.train.perceptual_weight <= 0.0 and (
+            cfg.train.perceptual_encoder_npz or cfg.train.vgg_weights_npz
+        ):
+            # a feature prior given with the objective off would be dropped
+            # silently: fail loudly instead
+            raise ValueError(
+                "TrainConfig.perceptual_encoder_npz / vgg_weights_npz were "
+                "given but TrainConfig.perceptual_weight is 0 (off): set "
+                "perceptual_weight > 0 to enable the objective, or drop the "
+                "weights"
+            )
+        if cfg.train.debug_nans:
+            raise NotImplementedError(
+                "debug_nans: no NaN check is ported yet (ROADMAP.md, queue 1: "
+                "Trainer.train and the CLI)"
+            )
         if cfg.pool.num_generators > 1:
             raise NotImplementedError(
                 "num_generators > 1: the generator pool is not ported yet "

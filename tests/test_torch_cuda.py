@@ -126,7 +126,7 @@ _BAND_CASES = [
 
 @pytest.mark.cuda
 class TestCudaLossPaths:
-    """K2 and K3 on their vector path (16-byte loads) and scalar path
+    """K1, K2 and K3 on their vector path (16-byte loads) and scalar path
     against the plain versions in float64, through the public wrappers.
     The scalar path of a shape with W·C % 4 == 0 is reached by a
     misaligned but contiguous copy, as the wrapper picks the path."""
@@ -146,8 +146,9 @@ class TestCudaLossPaths:
         dsr = rk.loss_grad(hr, sr, stats, g_edge, g_tv)
         torch.cuda.synchronize()
         other = "scalar" if path == "vec" else "vec"
-        assert rk.paths == {f"loss_sums_{path}": 1, f"loss_grad_{path}": 1,
-                            f"loss_sums_{other}": 0, f"loss_grad_{other}": 0}
+        assert rk.paths == {f"{name}_{p}": int(p == path)
+                            for name in ("edge_stats", "loss_sums", "loss_grad")
+                            for p in (path, other)}
 
         hr64, sr64 = hr.cpu().double(), sr.cpu().double()
         want = rk.edge_stats_plain(hr64)
@@ -166,12 +167,12 @@ class TestCudaLossPaths:
         hr, sr = _sparse_pair((2, 37, 100, 3), cuda_device, seed=1)
         if path == "scalar":
             hr, sr = _misaligned(hr), _misaligned(sr)
-        stats = rk.edge_stats(hr)
         one = torch.ones((), device=cuda_device)
         runs = []
         for _ in range(2):
-            st = stats.clone()
-            runs.append([*rk.loss_sums(hr, sr, st), st, rk.loss_grad(hr, sr, st, one, one)])
+            st = rk.edge_stats(hr)
+            runs.append([st[:2].clone(), *rk.loss_sums(hr, sr, st), st,
+                         rk.loss_grad(hr, sr, st, one, one)])
         for a, b in zip(*runs):
             assert torch.equal(a, b)
 

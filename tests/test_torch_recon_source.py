@@ -13,11 +13,13 @@ square an image (sparse edges, so the TV term is live: relu(tv mean) > 0
 and its gradient takes part), sr rough and independent. Bars as on the
 card: losses and statistics rel 1e-4, d/d sr 1e-3·max|g|.
 
-Shapes: C in 1..4; two bands a row or one (a band is 30 float4 columns in
-K2, 28 in K3; (1, 17, 33, 1) has a row narrower than a band); H not a
-multiple of a warp's run of rows (8 here: the stand-in's card has 2 SMs),
-so runs cross into the next image; W·C % 4 == 0 on both paths, W·C % 4 !=
-0 on the scalar path.
+Every kernel runs on the path the case names. Shapes: C in 1..4; two
+bands a row or one (a band is 30 float4 columns in K1 and K2, 28 in K3;
+(1, 17, 33, 1) has a row narrower than a band; (2, 13, 62, 2) has 31
+float4 columns, so K1's and K2's second band owns a single one beside its
+halo lanes); H not a multiple of a warp's run of rows (8 here: the
+stand-in's card has 2 SMs), so runs cross into the next image; W·C % 4 ==
+0 on both paths, W·C % 4 != 0 on the scalar path.
 """
 
 import numpy as np
@@ -49,7 +51,7 @@ def _pair(shape, seed=0):
 
 
 def _run(lib, hr, sr, vec, g_edge, g_tv):
-    stats = rk._launch_edge_stats(lib, hr, 0)
+    stats = rk._launch_edge_stats(lib, hr, vec, 0)
     edge_loss, tv_loss = rk._launch_loss_sums(lib, hr, sr, stats, vec, 0)
     dsr = rk._launch_loss_grad(lib, hr, sr, stats, torch.tensor(g_edge),
                                torch.tensor(g_tv), vec, 0)
@@ -61,6 +63,7 @@ CASES = [
     ((1, 17, 33, 1), False),
     ((1, 9, 36, 4), True), ((1, 9, 36, 4), False),
     ((1, 21, 66, 2), True), ((1, 21, 66, 2), False),
+    ((2, 13, 62, 2), True), ((2, 13, 62, 2), False),
 ]
 
 
@@ -86,6 +89,21 @@ def test_recon_source_matches_plain(emulated_lib, shape, vec, g_edge, g_tv):
     assert err <= 1e-3 * float(g_p.abs().max()), f"dsr max|Δ| {err:.3e}"
 
 
+@pytest.mark.parametrize("shape,vec", CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{'vec' if v else 'scalar'}"
+                              for s, v in CASES])
+def test_recon_source_edge_stats_dense(emulated_lib, shape, vec):
+    """K1 on a dense hr, so that every column and row of every band and run
+    carries edges: a float missed or counted twice moves the sums (the
+    sparse pairs above have no edges at most band seams)."""
+    rng = np.random.default_rng(2)
+    hr = torch.from_numpy((rng.integers(0, 256, shape) / 256.0).astype(np.float32))
+    assert rk.vector_path(hr) or not vec
+    stats = rk._launch_edge_stats(emulated_lib, hr, vec, 0)
+    want = rk.edge_stats_plain(hr.double())
+    np.testing.assert_allclose(stats.double().numpy(), want.numpy(), rtol=1e-4)
+
+
 @pytest.mark.parametrize("vec", [True, False], ids=["vec", "scalar"])
 def test_recon_source_bit_identical(emulated_lib, vec):
     """Two calls give the same bits: no float atomics, fixed sum orders."""
@@ -101,8 +119,10 @@ def test_recon_source_refuses_misaligned_vector_path(emulated_lib):
     flat = torch.zeros(1 + 9 * 36 * 4)
     hr = flat[1:].view(1, 9, 36, 4)  # contiguous, 4 bytes off
     sr = torch.zeros_like(hr)
-    assert hr.is_contiguous() and not rk.vector_path(hr, sr)
-    stats = rk._launch_edge_stats(emulated_lib, hr, 0)
+    assert hr.is_contiguous() and not rk.vector_path(hr) and not rk.vector_path(hr, sr)
+    with pytest.raises(RuntimeError, match="recon_edge_stats"):
+        rk._launch_edge_stats(emulated_lib, hr, True, 0)
+    stats = rk._launch_edge_stats(emulated_lib, hr, False, 0)
     with pytest.raises(RuntimeError, match="recon_loss_sums"):
         rk._launch_loss_sums(emulated_lib, hr, sr, stats, True, 0)
     with pytest.raises(RuntimeError, match="recon_loss_grad"):

@@ -202,6 +202,27 @@ class TestTrainer:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 Trainer(cfg, device="cpu")
 
+    @pytest.mark.parametrize("train,field", [
+        (dict(stop_sync_every_batches=0), "stop_sync_every_batches"),
+        (dict(vgg_weights_npz="vgg19.npz"), "vgg_weights_npz"),
+        (dict(perceptual_encoder_npz="encoder.npz"), "perceptual_encoder_npz"),
+    ], ids=["stop_sync_0", "vgg_weights_off", "encoder_weights_off"])
+    def test_refuses_what_jax_trainer_refuses(self, train, field):
+        """Each config the JAX Trainer refuses with ValueError (perceptual
+        weights given with perceptual_weight 0 included) the port's refuses
+        too, and names the field, before it touches a device."""
+        model, data = dict(num_features=8, num_residuals=1), dict(hr_size=(32, 32))
+        with pytest.raises(ValueError):
+            JTrainer(JConfig(model=JModelConfig(**model), data=JDataConfig(**data),
+                             train=JTrainConfig(**train)), use_mesh=False)
+        with pytest.raises(ValueError, match=field):
+            Trainer(Config(model=ModelConfig(**model), data=DataConfig(**data),
+                           train=TrainConfig(**train)), device="cpu")
+
+    def test_debug_nans_names_roadmap(self):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(Config(train=TrainConfig(debug_nans=True)), device="cpu")
+
     def test_cuda_by_default_never_quietly_cpu(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         cfg = Config(model=ModelConfig(**SMALL))
