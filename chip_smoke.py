@@ -19,15 +19,31 @@ Phases, each of which must pass (any failure exits non-zero):
      share of the bound that gives, and the wrapper's host gap (ms by
      events minus device ms);
   3. hold one pixel step on the card (kernels) against the same step on
-     the CPU (plain versions) at a small size, same weights and batch;
+     the CPU (plain versions) at a small size, same weights and batch, in
+     fp32 (losses rel 1e-4) and in bf16 (rel 2e-2), params within 2·lr;
   4. train the flagship configuration (F=64, 16 blocks, 4x subpixel head,
-     fp32, HR 512x1024, batch 12) for one warm-up epoch and one counted
-     epoch of 3 steps through ``Trainer.train_epoch`` on the device-cache
-     path, then ``compute_score`` on one validation batch. The launch
-     counts are zeroed just before the counted epoch and read just after:
-     K1, K2 and K3 must each have launched once per step, on their
-     vector path;
-  5. the residual tower (``residual_tower``, kernels K4 and K5) at the
+     HR 512x1024) through ``Trainer.train_epoch`` on the device-cache
+     path, each run one warm-up epoch and one counted epoch of 3 steps: fp32
+     at batch 12, bf16 at batch 12 and at batch 24, with ms/step, img/s and
+     peak memory. The launch counts are zeroed just before each counted
+     epoch and read just after: K1, K2 and K3 must each have launched once
+     per step, on their vector path. ``compute_score`` on one validation
+     batch (fp32); one profiled epoch of fp32 batch 12 and of bf16 batch 24
+     (device time by kernel and by group). Then the layout experiment at
+     batch 12 in both dtypes: the model's weights and activations in
+     ``channels_last`` against the default layout, in turns (default,
+     channels_last, channels_last, default), with the run-to-run spread
+     and a profiled epoch of bf16 channels_last;
+  5. the train entry point at the flagship size in bf16, batch 12,
+     configured by the ``train`` CLI's flags: ``Trainer.train`` for 2
+     epochs with checkpoints every epoch, keep-best and validation every
+     epoch on 36 + 12 in-memory clips, then ``resume`` to epoch 3 (launch
+     counts zeroed before it: K1-K3 once per step, vector path); checks
+     the JSONL, the snapshots, the sidecar, the comparison PNGs and that
+     the resumed epoch moved the params, and the rating curve where
+     matplotlib is installed (where it is not, the curve is named as not
+     written);
+  6. the residual tower (``residual_tower``, kernels K4 and K5) at the
      flagship tower shape x (12, 128, 256, 64), N=16, in f32 and bf16:
      K4 and K5 against the plain version and its autograd, launch counts
      (one ``tower_fwd`` per forward, one ``tower_bwd`` per backward), two
@@ -36,7 +52,8 @@ Phases, each of which must pass (any failure exits non-zero):
      each tile's device ms and TFLOP/s per launch (and ms per launch with
      and without GN1 + ReLU on its operand), times
      beside the bound, the plain version and the cuDNN chain (the port's
-     ``ResidualBlock`` x16 with zero conv biases), achieved TFLOP/s of the
+     ``ResidualBlock`` x16 as the model runs it in that dtype, with zero
+     conv biases), achieved TFLOP/s of the
      kernel and the chain, and peak memory.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
@@ -46,12 +63,15 @@ package is missing. The script imports nothing of JAX or ``srgan_tpu``.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,6 +85,7 @@ BF16_OPS_PER_S = 989e12     # H100 SXM, bf16 dense tensor cores
 TOWER_SHAPE = (12, 128, 256, 64)  # the LR of HR 512x1024 at 4x, F=64
 TOWER_BLOCKS = 16
 LOSS_SHAPE = (12, 512, 1024, 3)
+FLAGSHIP_STEPS = 3  # counted steps an epoch of the flagship runs
 # Arithmetic each kernel does per element (one op per add, mul, abs, max,
 # compare; from the source): K1 two 6-tap Sobel sums (22), 2 abs, max,
 # 3 for the sums; K2 the same edge map (25) + normalise and clamp (6) +
@@ -81,6 +102,15 @@ LOSS_KERNELS = {
     "loss_sums": ("loss_sums_kernel", "loss_sums_finalize"),
     "loss_grad": ("grad_kernel", None),
 }
+# device kernels by what they do, for the profile's summary; first match
+PROFILE_GROUPS = [(g, re.compile(rx, re.I)) for g, rx in (
+    ("loss K1-K3", LOSS_KERNEL_RE.pattern),
+    ("conv", r"conv|gemm|xmma|winograd|dgrad|wgrad|implicit|cudnn|sm\d\d_"),
+    ("group norm", r"group_?norm|welford|moments|GammaBeta|ComputeFused"),
+    ("adam, ema", r"foreach|multi_tensor"),
+    ("cast, copy", r"copy|cast|convert"),
+    ("elementwise", r"elementwise|vectorized|unrolled|reduce"),
+)]
 TPU_KERNELS = {
     "edge_stats": "srgan_tpu/ops/pallas/recon_loss_kernel.py:114",
     "loss_sums": "srgan_tpu/ops/pallas/recon_loss_kernel.py:144",
@@ -314,99 +344,205 @@ def kernel_phase(rk, dev) -> dict:
 
 
 def small_step_phase(dev) -> None:
-    """One pixel step at a small size: kernels on the card against the
-    plain versions on the CPU, from the same weights and batch."""
+    """One pixel step at a small size, in fp32 and in bf16: kernels on the
+    card against the plain versions on the CPU, from the same weights and
+    batch. Bars: losses rel 1e-4 (fp32) / 2e-2 (bf16), params 2·lr."""
     from srgan_tpu_torch.config import ModelConfig
     from srgan_tpu_torch.models.srresnet import init_generator
     from srgan_tpu_torch.training.steps import generator_pixel_step
     from srgan_tpu_torch.training.train_state import TrainState
 
-    cfg = ModelConfig(num_features=8, num_residuals=2, upscale_factor=4)
     rng = np.random.default_rng(0)
     hr = rng.random((2, 64, 128, 3), dtype=np.float32)
     lr_imgs = rng.random((2, 16, 32, 3), dtype=np.float32)
-    results = []
-    for d in (dev, torch.device("cpu")):
-        state = TrainState(init_generator(cfg, seed=0, device=d))
-        state, m = generator_pixel_step(
-            state, torch.from_numpy(hr).to(d), torch.from_numpy(lr_imgs).to(d), 1e-3
+    for compute_dtype, loss_tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        cfg = ModelConfig(num_features=8, num_residuals=2, upscale_factor=4,
+                          compute_dtype=compute_dtype)
+        results = []
+        for d in (dev, torch.device("cpu")):
+            state = TrainState(init_generator(cfg, seed=0, device=d))
+            state, m = generator_pixel_step(
+                state, torch.from_numpy(hr).to(d), torch.from_numpy(lr_imgs).to(d), 1e-3
+            )
+            results.append((m["packed"].cpu(), [p.detach().cpu() for p in state.params]))
+        (pk_gpu, p_gpu), (pk_cpu, p_cpu) = results
+        err = float(((pk_gpu - pk_cpu).abs() / pk_cpu.abs().clamp_min(1e-12))[:3].max())
+        check(err <= loss_tol, f"small step {compute_dtype}: losses rel err {err} > {loss_tol}")
+        # a first Adam step moves a weight by lr·g/(|g| + eps), so a gradient
+        # near 0 whose sign differs moves the two copies 2·lr apart (bf16
+        # reaches it); 1e-6 more covers the rounding of the params
+        dp = max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu))
+        check(dp <= 2e-3 + 1e-6, f"small step {compute_dtype}: params max|d| {dp} > 2*lr")
+        print(f"small step {compute_dtype}: loss rel err {err:.3e} (bar {loss_tol}), "
+              f"params max|d| {dp:.3e} (bar 2e-3)", flush=True)
+
+
+def smooth_clips(dev, n: int, seed: int, hw=LOSS_SHAPE[1:3]) -> np.ndarray:
+    """n smooth random HR clips, (n, H, W, 3) uint8: bicubic upsampling of
+    coarse noise, made on the card from ``seed``."""
+    h, w = hw
+    g = torch.Generator(device=dev).manual_seed(seed)
+    coarse = torch.rand((n, 3, h // 64, w // 64), generator=g, device=dev)
+    img = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bicubic")
+    u8 = (img.clamp(0, 1) * 255).round().to(torch.uint8)
+    return u8.permute(0, 2, 3, 1).contiguous().cpu().numpy()
+
+
+def channels_last(trainer) -> None:
+    """The layout experiment: the model's weights and its activations in
+    ``channels_last`` (GroupNorm's output is turned back to it, since the
+    CUDA group_norm returns NCHW). The public NHWC contract is unchanged:
+    the input's NCHW view is channels_last already."""
+    model = trainer.pool.leader.state.model
+    model.to(memory_format=torch.channels_last)
+    for m in model.modules():
+        if isinstance(m, torch.nn.GroupNorm):
+            m.register_forward_hook(
+                lambda mod, args, out: out.contiguous(memory_format=torch.channels_last))
+
+
+class Flagship:
+    """One flagship Trainer (F=64, 16 blocks, 4x subpixel head, HR
+    512x1024) on clips in the device cache, with a temporary results dir."""
+
+    def __init__(self, dev, compute_dtype: str, batch: int, clips, results_dir: str,
+                 layout: str = "default"):
+        from srgan_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+        from srgan_tpu_torch.data.dataset import ArrayDataset
+        from srgan_tpu_torch.data.pipeline import TrainPipeline
+        from srgan_tpu_torch.training.loop import Trainer
+
+        self.tag = f"{compute_dtype} batch {batch}" + (
+            " channels_last" if layout == "channels_last" else "")
+        self.batch = batch
+        cfg = Config(
+            model=ModelConfig(compute_dtype=compute_dtype),
+            data=DataConfig(batch_size=batch, device_cache="on"),
+            train=TrainConfig(progress="off", score_max_batches=1,
+                              results_dir=results_dir),
         )
-        results.append((m["packed"].cpu(), [p.detach().cpu() for p in state.params]))
-    (pk_gpu, p_gpu), (pk_cpu, p_cpu) = results
-    err = float(((pk_gpu - pk_cpu).abs() / pk_cpu.abs().clamp_min(1e-12))[:3].max())
-    check(err <= 1e-4, f"small step losses rel err {err} > 1e-4")
-    dp = max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu))
-    check(dp <= 2e-3, f"small step params max|d| {dp} > 2*lr")
-    print(f"small step: loss rel err {err:.3e}, params max|d| {dp:.3e}", flush=True)
+        self.trainer = Trainer(cfg)  # the card, by default
+        if layout == "channels_last":
+            channels_last(self.trainer)
+        self.pipe = TrainPipeline(cfg.data, ArrayDataset(clips[:FLAGSHIP_STEPS * batch]),
+                                  use_split=False, seed=cfg.train.seed)
+        t0 = time.perf_counter()
+        self.warm = self.trainer.train_epoch(self.pipe, 0)  # cuDNN set-up, upload
+        torch.cuda.synchronize()
+        self.warm_s = time.perf_counter() - t0
+        self.epochs = 1
+
+    def epoch(self) -> tuple:
+        """(metrics, seconds) of one counted epoch."""
+        t0 = time.perf_counter()
+        m = self.trainer.train_epoch(self.pipe, self.epochs)
+        torch.cuda.synchronize()
+        self.epochs += 1
+        dt = time.perf_counter() - t0
+        check(m["n_batches"] == FLAGSHIP_STEPS,
+              f"{self.tag}: expected {FLAGSHIP_STEPS} steps, ran {m['n_batches']}")
+        for k in ("g_loss", "com_loss", "tv_loss"):
+            check(math.isfinite(m[k]) and math.isfinite(self.warm[k]),
+                  f"{self.tag}: {k} not finite")
+        return m, dt
+
+    def counted(self, rk) -> dict:
+        """The main path's counted epoch: launch counts zeroed just before
+        and read just after; K1, K2 and K3 once per step, vector path."""
+        torch.cuda.reset_peak_memory_stats()
+        rk.reset_launches()
+        m, dt = self.epoch()
+        counts, paths = dict(rk.launches), dict(rk.paths)
+        peak = torch.cuda.max_memory_allocated()
+        for name in LOSS_KERNELS:
+            check(counts[name] == FLAGSHIP_STEPS,
+                  f"{self.tag}: {name} launched {counts[name]} times in "
+                  f"{FLAGSHIP_STEPS} steps")
+            check(paths[f"{name}_vec"] == FLAGSHIP_STEPS and paths[f"{name}_scalar"] == 0,
+                  f"{self.tag}: {name}: paths {paths}, expected the vector path every step")
+        step_ms = dt / FLAGSHIP_STEPS * 1e3
+        print(f"train {self.tag}: warm-up epoch {self.warm_s:.3f} s; counted epoch "
+              f"{FLAGSHIP_STEPS} steps {step_ms:.2f} ms/step "
+              f"{self.batch * FLAGSHIP_STEPS / dt:.2f} img/s; g_loss "
+              f"{self.warm['g_loss']:.5f} -> {m['g_loss']:.5f}; peak memory "
+              f"{peak / 2**30:.2f} GiB; launches {counts}; paths {paths}", flush=True)
+        return {"counts": counts, "step_ms": step_ms, "peak_gib": peak / 2**30}
+
+    def close(self):
+        self.pipe.close()
 
 
 def training_phase(rk, dev) -> dict:
-    from srgan_tpu_torch.config import Config, DataConfig, TrainConfig
-    from srgan_tpu_torch.data.dataset import ArrayDataset
-    from srgan_tpu_torch.data.pipeline import TrainPipeline
-    from srgan_tpu_torch.training.loop import Trainer
+    """The flagship step through ``Trainer.train_epoch``: fp32 at batch 12
+    (its counts feed the kernels line), bf16 at batch 12 and 24, each a
+    warm-up epoch then a counted one; ``compute_score`` on fp32; a profiled
+    epoch of fp32 and of bf16 batch 24; then the layout experiment at
+    batch 12 in both dtypes, default and channels_last in turns, with a
+    profiled epoch of bf16 channels_last."""
+    clips = smooth_clips(dev, FLAGSHIP_STEPS * 24, 1)
+    val_clips = smooth_clips(dev, 12, 2)
+    out = {}
+    with tempfile.TemporaryDirectory() as results_dir:
+        from srgan_tpu_torch.data.dataset import ArrayDataset
+        from srgan_tpu_torch.data.pipeline import TrainPipeline
 
-    cfg = Config(
-        data=DataConfig(batch_size=12, device_cache="on"),
-        train=TrainConfig(progress="off", score_max_batches=1),
-    )
-    h, w = cfg.data.hr_size
+        runs = {}
+        try:
+            for compute_dtype, batch in (("float32", 12), ("bfloat16", 12),
+                                         ("bfloat16", 24)):
+                run = Flagship(dev, compute_dtype, batch, clips, results_dir)
+                runs[(compute_dtype, batch)] = run
+                out[(compute_dtype, batch)] = run.counted(rk)
+                if batch == 24 or compute_dtype == "float32":
+                    profile_epoch(run.trainer, run.pipe, FLAGSHIP_STEPS, run.tag)
+                    run.epochs += 1
+                if compute_dtype == "float32":
+                    val = TrainPipeline(run.trainer.cfg.data, ArrayDataset(val_clips),
+                                        use_split=False, seed=1, augment=False)
+                    try:
+                        psnr, ssim = run.trainer.compute_score(val, 1)
+                    finally:
+                        val.close()
+                    check(math.isfinite(psnr) and math.isfinite(ssim),
+                          "validation score not finite")
+                    print(f"train {run.tag}: psnr {psnr:.3f} ssim {ssim:.4f}", flush=True)
+            runs.pop(("bfloat16", 24)).close()  # free its cached clips
 
-    def clips(n, seed):
-        # smooth random images: bicubic upsampling of coarse noise
-        g = torch.Generator(device=dev).manual_seed(seed)
-        coarse = torch.rand((n, 3, h // 64, w // 64), generator=g, device=dev)
-        img = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bicubic")
-        u8 = (img.clamp(0, 1) * 255).round().to(torch.uint8)
-        return ArrayDataset(u8.permute(0, 2, 3, 1).contiguous().cpu().numpy())
-
-    trainer = Trainer(cfg)  # the card, by default
-    train_pipe = TrainPipeline(cfg.data, clips(36, 1), use_split=False,
-                               seed=cfg.train.seed)
-    val_pipe = TrainPipeline(cfg.data, clips(12, 2), use_split=False,
-                             seed=cfg.train.seed + 1, augment=False)
-
-    try:
-        t0 = time.perf_counter()
-        warm = trainer.train_epoch(train_pipe, 0)  # cuDNN set-up, dataset upload
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-
-        rk.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        m = trainer.train_epoch(train_pipe, 1)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = dict(rk.launches)
-        paths = dict(rk.paths)
-        psnr, ssim = trainer.compute_score(val_pipe, 1)
-        peak = torch.cuda.max_memory_allocated()
-        profile_epoch(trainer, train_pipe, m["n_batches"])
-    finally:
-        train_pipe.close()
-        val_pipe.close()
-
-    steps = m["n_batches"]
-    check(steps == 3, f"expected 3 steps, ran {steps}")
-    for k in ("g_loss", "com_loss", "tv_loss"):
-        check(math.isfinite(m[k]) and math.isfinite(warm[k]), f"{k} not finite")
-    for name, c in counts.items():
-        check(c == steps, f"{name} launched {c} times in {steps} steps")
-    for name in LOSS_KERNELS:
-        check(paths[f"{name}_vec"] == steps and paths[f"{name}_scalar"] == 0,
-              f"{name}: paths {paths}, expected the vector path every step")
-    check(math.isfinite(psnr) and math.isfinite(ssim), "validation score not finite")
-    step_ms = dt / steps * 1e3
-    print(f"train: warm-up epoch {warm_s:.3f} s; counted epoch {steps} steps "
-          f"{step_ms:.2f} ms/step {12 * steps / dt:.2f} img/s; "
-          f"g_loss {warm['g_loss']:.5f} -> {m['g_loss']:.5f}; "
-          f"psnr {psnr:.3f} ssim {ssim:.4f}; peak memory "
-          f"{peak / 2**30:.2f} GiB; launches {counts}; paths {paths}", flush=True)
-    return counts
+            # layout: default, channels_last, channels_last, default for
+            # each dtype
+            for compute_dtype in ("float32", "bfloat16"):
+                default = runs[(compute_dtype, 12)]
+                cl = Flagship(dev, compute_dtype, 12, clips, results_dir,
+                              layout="channels_last")
+                try:
+                    times = {"default": [out[(compute_dtype, 12)]["step_ms"]],
+                             "channels_last": []}
+                    for layout, run in (("channels_last", cl), ("channels_last", cl),
+                                        ("default", default)):
+                        times[layout].append(run.epoch()[1] / FLAGSHIP_STEPS * 1e3)
+                    if compute_dtype == "bfloat16":  # where its time goes
+                        profile_epoch(cl.trainer, cl.pipe, FLAGSHIP_STEPS, cl.tag)
+                finally:
+                    cl.close()
+                spread = max(abs(t[0] - t[1]) for t in times.values())
+                gain = (statistics.mean(times["default"])
+                        - statistics.mean(times["channels_last"]))
+                print(f"layout {compute_dtype} batch 12: ms/step default "
+                      + " / ".join(f"{t:.2f}" for t in times["default"])
+                      + ", channels_last " + " / ".join(f"{t:.2f}" for t in times["channels_last"])
+                      + f"; channels_last faster by {gain:.2f} ms/step, run-to-run "
+                      f"spread {spread:.2f} ms", flush=True)
+        finally:
+            for run in runs.values():
+                run.close()
+    b12, b24 = out[("bfloat16", 12)], out[("bfloat16", 24)]
+    print(f"train: bf16 against fp32 at batch 12: {out[('float32', 12)]['step_ms'] / b12['step_ms']:.2f}x; "
+          f"bf16 img/s batch 12 {12e3 / b12['step_ms']:.2f}, batch 24 "
+          f"{24e3 / b24['step_ms']:.2f}", flush=True)
+    return out[("float32", 12)]["counts"]
 
 
-def profile_epoch(trainer, pipe, steps: int) -> None:
+def profile_epoch(trainer, pipe, steps: int, tag: str) -> None:
     """Where the time goes: one more epoch under torch.profiler. Device
     time by kernel, the loss kernels' share and the device's idle share
     (1 − busy/wall; the profiler's own host cost inflates wall)."""
@@ -420,13 +556,116 @@ def profile_epoch(trainer, pipe, steps: int) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
     loss = sum(v for k, v in by_name.items() if LOSS_KERNEL_RE.search(k))
-    print(f"profile: {steps} steps, wall {wall_us / 1e3:.1f} ms, device busy "
+    print(f"profile {tag}: {steps} steps, wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy / 1e3:.1f} ms (idle share {1 - busy / wall_us:.3f}); loss "
           f"kernels K1-K3 {loss / 1e3:.3f} ms ({loss / busy:.4f} of busy)",
           flush=True)
+    groups: dict = {}
+    for name, us in by_name.items():
+        group = next((g for g, rx in PROFILE_GROUPS if rx.search(name)), "other")
+        groups[group] = groups.get(group, 0.0) + us
+    print(f"profile {tag}: ms/step by group: " + "; ".join(
+        f"{g} {us / 1e3 / steps:.3f} ({us / busy:.3f})"
+        for g, us in sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    for name, us in top[:10]:
-        print(f"profile:   {us / 1e3 / steps:9.3f} ms/step  {name[:100]}")
+    for name, us in top[:12]:
+        print(f"profile {tag}:   {us / 1e3 / steps:9.3f} ms/step  {name[:100]}")
+
+
+def entry_point_phase(rk, dev) -> None:
+    """The train entry point on the card at the flagship size in bf16
+    (F=64, 16 blocks, HR 512x1024, batch 12), configured by the CLI's
+    flags: 2 epochs with ``--checkpoint-every 1 --keep-best
+    --validate-every 1``, then ``--resume`` to epoch 3, with the launch
+    counts zeroed just before the resumed run and read just after. 36
+    training clips, so that the 0.7 split leaves 2 steps an epoch. The
+    clips are in memory (``Trainer.train`` on an ``ArrayDataset``), so that
+    the phase also runs where matplotlib is missing: there the CLI's own
+    run would end in ``ModuleNotFoundError`` at the rating curve. An
+    artifact the machine cannot write is named, and its writer stubbed out
+    here only."""
+    from srgan_tpu_torch import cli
+    from srgan_tpu_torch.data.dataset import ArrayDataset
+    from srgan_tpu_torch.training import checkpoint as ckpt
+    from srgan_tpu_torch.training import loop
+
+    missing = []
+    for name in ("PIL", "matplotlib"):
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            missing.append(name)
+    if missing:
+        print(f"entry point: {', '.join(missing)} missing on this machine; not "
+              "written: " + ", ".join(
+                  {"PIL": "the comparison PNGs", "matplotlib": "the rating curve"}[m]
+                  for m in missing), flush=True)
+    steps = 2
+    data = (ArrayDataset(smooth_clips(dev, 36, 3)), ArrayDataset(smooth_clips(dev, 12, 4)))
+    save_rating_curve = loop.save_rating_curve
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as res:
+        flags = ["train", "--epochs", "2", "--batch-size", "12", "--bf16",
+                 "--checkpoint-every", "1", "--keep-best", "--validate-every",
+                 "0" if "PIL" in missing else "1", "--results-dir", res,
+                 "--progress", "off"]
+        try:
+            if "matplotlib" in missing:
+                loop.save_rating_curve = lambda *args, **kw: None
+            t0 = time.perf_counter()
+            loop.Trainer(cli.config_from_args(cli.build_parser().parse_args(flags))
+                         ).train(*data)
+            first_s = time.perf_counter() - t0
+            epoch2 = ckpt.restore_generator_params(res, "Training")
+            args = cli.build_parser().parse_args(flags + ["--epochs", "3", "--resume"])
+            rk.reset_launches()
+            t0 = time.perf_counter()
+            loop.Trainer(cli.config_from_args(args)).train(*data, resume=True)
+            torch.cuda.synchronize()
+        finally:
+            loop.save_rating_curve = save_rating_curve
+        resume_s = time.perf_counter() - t0
+        counts, paths = dict(rk.launches), dict(rk.paths)
+
+        for name in LOSS_KERNELS:
+            check(counts[name] == steps and paths[f"{name}_vec"] == steps,
+                  f"entry point resume: {name} launches {counts[name]}, paths "
+                  f"{paths}; expected {steps} on the vector path")
+        with open(os.path.join(res, "Training_metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        check([r["epoch"] for r in records] == [1, 2, 3],
+              f"entry point: JSONL epochs {[r['epoch'] for r in records]}")
+        check(all(math.isfinite(r[k]) for r in records for k in ("g_loss", "psnr")),
+              "entry point: non-finite loss or psnr in the JSONL")
+        check(all(r["n_batches"] == steps for r in records),
+              f"entry point: batches an epoch {[r['n_batches'] for r in records]}")
+        latest = ckpt.latest_ckpt_dir(res, "Training")
+        check(os.path.basename(latest).startswith("Training_ckpt@3"),
+              f"entry point: latest snapshot {latest}")
+        best = ckpt.latest_ckpt_dir(res, "Training-best")
+        check(best is not None, "entry point: no Training-best snapshot")
+        sidecar = ckpt.load_model_config(res, "Training")
+        check(sidecar is not None and sidecar.compute_dtype == "bfloat16"
+              and sidecar.num_features == 64 and sidecar.num_residuals == 16,
+              f"entry point: sidecar {sidecar}")
+        names = sorted(os.listdir(res))
+        want = ["Training_metrics.jsonl", "Training_model.json", "Training-best_model.json"]
+        if "PIL" not in missing:
+            want += [f"Training_epoch_{e}_0_comparison.png" for e in (1, 2, 3)]
+        if "matplotlib" not in missing:
+            want.append("Trainingtraining_loss_curve_0.png")
+        check(set(want) <= set(names), f"entry point: artifacts {names}, want {want}")
+        epoch3 = ckpt.restore_generator_params(res, "Training")
+        check(epoch3.keys() == epoch2.keys()
+              and any(not torch.equal(epoch3[k], epoch2[k]) for k in epoch2),
+              "entry point: the resumed epoch 3 left the params as they were")
+        check(all(torch.isfinite(t).all() for t in epoch3.values()),
+              "entry point: non-finite params after the resume")
+    print(f"entry point bf16 batch 12: 2 epochs in {first_s:.1f} s, resume to epoch 3 "
+          f"in {resume_s:.1f} s (phase {time.perf_counter() - t_phase:.1f} s); psnr by "
+          f"epoch {[round(r['psnr'], 3) for r in records]}; resumed launches {counts}; "
+          f"latest {os.path.basename(latest)}, best {os.path.basename(best)}; "
+          f"artifacts {names}", flush=True)
 
 
 def _tower_params(tk, dev, g, margin: bool):
@@ -459,13 +698,15 @@ def _errors(got, want):
 
 
 def _cudnn_chain(tk, params, cd):
-    """The port's ResidualBlock x16, zero conv biases, NCHW, in ``cd``."""
+    """The port's ResidualBlock x16 as the model runs it in ``cd`` (f32
+    params cast on each call, GroupNorm in f32 with its output rounded),
+    zero conv biases, NCHW."""
     from srgan_tpu_torch.models.srresnet import ResidualBlock
 
     f = TOWER_SHAPE[-1]
     blocks = []
     for i in range(TOWER_BLOCKS):
-        blk = ResidualBlock(f)
+        blk = ResidualBlock(f, compute_dtype=cd)
         with torch.no_grad():
             for conv, w in ((blk.conv1, params.w1[i]), (blk.conv2, params.w2[i])):
                 conv.weight.copy_(w.permute(3, 2, 0, 1))
@@ -475,7 +716,7 @@ def _cudnn_chain(tk, params, cd):
                 norm.weight.copy_(s)
                 norm.bias.copy_(b)
         blocks.append(blk)
-    return torch.nn.Sequential(*blocks).to(device=params.w1.device, dtype=cd)
+    return torch.nn.Sequential(*blocks).to(params.w1.device)
 
 
 def tower_determinism(tk, x, params, dy, cd, tag: str) -> None:
@@ -703,6 +944,7 @@ def main() -> int:
     kernels = kernel_phase(rk, dev)
     small_step_phase(dev)
     counts = training_phase(rk, dev)
+    entry_point_phase(rk, dev)
     tower = tower_phase(dev)
 
     line = []

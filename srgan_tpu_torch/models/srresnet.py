@@ -17,10 +17,23 @@ model runs NCHW. Traps against flax: ``nn.GroupNorm`` here is built with
 eps 1e-6 (flax's default; torch's is 1e-5), and flax computes the variance
 as E[x²]−E[x]² where torch takes E[(x−μ)²] — equal up to rounding. Every
 conv carries a bias, as flax's ``nn.Conv`` does.
+
+``compute_dtype="bfloat16"`` puts the roundings where flax's
+``dtype=bfloat16`` modules put them, by explicit casts (``torch.autocast``
+would run ``group_norm`` in f32 and carry the block output in f32). The
+params stay f32, the master copy Adam updates; each conv casts its input,
+kernel and bias to bf16 and returns bf16 (flax ``promote_dtype``), so the
+f32 parameters get f32 gradients through the cast. GroupNorm takes its
+statistics, normalise, scale and bias in f32 and rounds once, at the
+output (flax ``_normalize``). The input is cast once, by the stem;
+LeakyReLU, ReLU, the pixel (un)shuffles, both skip adds and the block
+carry stay bf16; the output comes back as f32, so the loss kernels keep
+their f32 input.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -32,11 +45,51 @@ from torch.utils.checkpoint import checkpoint
 from srgan_tpu_torch.config import ModelConfig
 
 HEADS = ("subpixel", "coarse", "reference")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _norm(norm: str, groups: int, features: int) -> nn.Module:
+def _dtype(name: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(
+            f"compute_dtype must be 'float32' or 'bfloat16', got {name!r}"
+        )
+    return DTYPES[name]
+
+
+class Conv2d(nn.Conv2d):
+    """flax ``nn.Conv(dtype=compute_dtype)``: input, kernel and bias cast to
+    the compute dtype on each call, the output in it. The bias is added
+    after the conv, in the compute dtype, as flax adds it (a bf16 conv
+    rounds its sum before the bias; on the CPU a fused bias would not)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        y = F.conv2d(x.to(cd), self.weight.to(cd), padding=self.padding)
+        return y + self.bias.to(cd).view(1, -1, 1, 1)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``nn.GroupNorm(dtype=compute_dtype)``: statistics, normalise,
+    scale and bias in f32, one rounding to the compute dtype at the
+    output."""
+
+    def __init__(self, groups: int, features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(groups, features, eps=1e-6)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+def _norm(norm: str, groups: int, features: int, compute_dtype) -> nn.Module:
     if norm == "group":
-        return nn.GroupNorm(groups, features, eps=1e-6)
+        return GroupNorm(groups, features, compute_dtype)
     if norm != "none":
         raise ValueError(f"norm must be 'group' or 'none', got {norm!r}")
     return nn.Identity()
@@ -46,13 +99,14 @@ class ResidualBlock(nn.Module):
     """conv3x3 → norm → ReLU → conv3x3 → norm, plus identity skip."""
 
     def __init__(self, num_features: int, norm: str = "group",
-                 group_norm_groups: int = 8):
+                 group_norm_groups: int = 8,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        f = num_features
-        self.conv1 = nn.Conv2d(f, f, 3, padding=1)
-        self.norm1 = _norm(norm, group_norm_groups, f)
-        self.conv2 = nn.Conv2d(f, f, 3, padding=1)
-        self.norm2 = _norm(norm, group_norm_groups, f)
+        f, cd = num_features, compute_dtype
+        self.conv1 = Conv2d(f, f, 3, padding=1, compute_dtype=cd)
+        self.norm1 = _norm(norm, group_norm_groups, f, cd)
+        self.conv2 = Conv2d(f, f, 3, padding=1, compute_dtype=cd)
+        self.norm2 = _norm(norm, group_norm_groups, f, cd)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.norm1(self.conv1(x)))
@@ -87,30 +141,27 @@ class SRResNet(nn.Module):
                 "head must be 'subpixel', 'coarse' or 'reference', "
                 f"got {head!r}"
             )
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: the port runs float32 "
-                "only so far (ROADMAP.md, queue 1: bf16 compute)"
-            )
+        cd = self.compute_dtype = _dtype(compute_dtype)
         nf, c = num_features, in_channels
         self.head = head
         self.remat = remat
         self.num_stages = int(math.log2(f))
-        self.stem = nn.Conv2d(c, nf, 9, padding=4)
+        conv = functools.partial(Conv2d, compute_dtype=cd)
+        self.stem = conv(c, nf, 9, padding=4)
         self.blocks = nn.ModuleList(
-            ResidualBlock(nf, norm, group_norm_groups)
+            ResidualBlock(nf, norm, group_norm_groups, cd)
             for _ in range(num_residuals)
         )
-        self.mid = nn.Conv2d(nf, nf, 3, padding=1)
+        self.mid = conv(nf, nf, 3, padding=1)
         self.upsample = nn.ModuleList(
-            nn.Conv2d(nf, nf * 4, 3, padding=1) for _ in range(self.num_stages)
+            conv(nf, nf * 4, 3, padding=1) for _ in range(self.num_stages)
         )
         if head == "reference":
-            self.tail = nn.Conv2d(nf, c, 9, padding=4)
+            self.tail = conv(nf, c, 9, padding=4)
         elif self._coarse:
-            self.tail = nn.Conv2d(nf * 16, c * 16, 3, padding=1)
+            self.tail = conv(nf * 16, c * 16, 3, padding=1)
         else:
-            self.tail = nn.Conv2d(nf * 4, c * 4, 5, padding=2)
+            self.tail = conv(nf * 4, c * 4, 5, padding=2)
 
     @property
     def _coarse(self) -> bool:
@@ -131,7 +182,7 @@ class SRResNet(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)
+        x = x.permute(0, 3, 1, 2)  # the stem casts it to the compute dtype
         out1 = F.leaky_relu(self.stem(x), 0.2)
         out = out1
         for block in self.blocks:
@@ -156,7 +207,7 @@ class SRResNet(nn.Module):
                 out = F.pixel_shuffle(F.pixel_shuffle(out, 2), 2)
             else:
                 out = F.pixel_shuffle(self.tail(out), 2)
-        return out.permute(0, 2, 3, 1).contiguous()
+        return out.permute(0, 2, 3, 1).float().contiguous()
 
 
 @torch.no_grad()
