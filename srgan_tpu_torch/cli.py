@@ -3,9 +3,11 @@ train ...``, the counterpart of ``srgan_tpu/cli.py``'s ``train`` with the
 same flags, defaults and ``Config`` mapping, plus ``--device`` (default
 ``cuda``; ``cpu`` runs on the CPU), the counterpart of ``JAX_PLATFORMS``.
 
-Flags whose feature is not ported reach an error that names its ROADMAP.md
-item: ``--gan``, ``--num-generators`` > 1 and ``--perceptual`` in the
-``Trainer``; ``--profile-dir`` and ``--multihost`` here. The other
+``--gan`` trains with the discriminator and ``--num-generators N`` trains a
+pool of N generators (the stacked pool's scan executor when N > 1). Flags
+whose feature is not ported reach an error that names its ROADMAP.md item:
+``--perceptual`` in the ``Trainer``; ``--pool-exec vmap``,
+``--profile-dir`` and ``--multihost`` here. The other
 subcommands of the JAX CLI (``eval``, ``upscale``, ``upscale-dir``,
 ``train-encoder``) are ROADMAP.md queue 1, items 9 and 11.
 """
@@ -28,11 +30,10 @@ def _add_train(sub):
     p.add_argument("--num-features", type=int, default=64)
     p.add_argument("--num-residuals", type=int, default=16)
     p.add_argument("--num-generators", type=int, default=1,
-                   help="pool size; only 1 is ported (ROADMAP.md queue 1, "
-                        "item 7)")
+                   help="pool size (readme.md multi-generator competition)")
     p.add_argument("--gan", action="store_true",
-                   help="adversarial training (not ported yet: ROADMAP.md "
-                        "queue 1, item 6)")
+                   help="adversarial training with the patch "
+                        "discriminator")
     p.add_argument("--d-stages", type=int, default=4,
                    help="discriminator conv/pool stages (4 = reference "
                         "parity, needs >=428px inputs)")
@@ -57,7 +58,8 @@ def _add_train(sub):
                         "(only read while --starting-gan-loss is unset)")
     p.add_argument("--pool-exec", choices=("scan", "vmap"), default="scan",
                    help="stacked-pool executor (pools of more than one "
-                        "generator)")
+                        "generator; vmap is not ported yet: ROADMAP.md "
+                        "queue 1, item 7)")
     p.add_argument("--no-mutual", action="store_true",
                    help="disable the epoch-end weak-learns-from-strong "
                         "interpolation (readme.md:13)")
@@ -219,6 +221,12 @@ def main(argv=None):
         raise NotImplementedError(
             "--multihost: multi-process training is not ported yet "
             "(ROADMAP.md, queue 1, item 10: parallelism)"
+        )
+    if args.pool_exec == "vmap":
+        raise NotImplementedError(
+            "--pool-exec vmap: the vmap pool executor is not ported yet "
+            "(ROADMAP.md, queue 1, item 7: generator pool); scan computes "
+            "the same updates"
         )
     import torch
 

@@ -68,7 +68,8 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
-        y = F.conv2d(x.to(cd), self.weight.to(cd), padding=self.padding)
+        y = F.conv2d(x.to(cd), self.weight.to(cd), stride=self.stride,
+                     padding=self.padding)
         return y + self.bias.to(cd).view(1, -1, 1, 1)
 
 

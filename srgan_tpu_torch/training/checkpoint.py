@@ -5,8 +5,16 @@ in place of Orbax.
 The payload is JAX's: for each generator its ``params``, its optimizer
 state (``opt_state``: Adam's ``mu``, ``nu`` and ``count`` in place of
 optax's state) and, when trained, ``ema_params``; the pool's bookkeeping
-(``pool_meta``, ``GeneratorPool.snapshot()``) and the ``epoch``. Tensors are
+(``pool_meta``, ``GeneratorPool.snapshot()``), the ``epoch`` and, in the
+GAN phase, the ``discriminator``'s ``params`` and ``opt_state``. Tensors are
 keyed by the model's ``state_dict`` names and saved on the host.
+
+A restore crosses phases and pool sizes as JAX's does: a pixel-phase
+snapshot restores into a GAN trainer (its fresh discriminator kept), a
+GAN-phase one into a pixel trainer (the saved discriminator read and
+dropped); a pool that grew warm-starts its extra members as copies of the
+restored leader (params and EMA shadows, their own fresh Adam state), and
+a pool that shrank keeps the first members of the loss-sorted snapshot.
 
 On disk, as in JAX: each snapshot is a directory ``{prefix}_ckpt@{epoch}``
 (``…@{epoch}.{k}`` when that epoch was snapshotted before), written under a
@@ -18,8 +26,8 @@ byte-equal to JAX's for the same ``ModelConfig``.
 Periodic saves (``block=False``) copy every tensor to the host before
 ``save_checkpoint`` returns (the train step updates the parameters in
 place), then write on a background thread; ``wait_for_checkpoints`` settles
-them and re-raises a writer's error. Not ported: the discriminator entry,
-restoring JAX's Orbax snapshots, and resizing a pool on restore.
+them and re-raises a writer's error. Not ported: restoring JAX's Orbax
+snapshots.
 """
 
 from __future__ import annotations
@@ -132,8 +140,8 @@ def _named(state: TrainState, tensors) -> dict:
     return {n: _host(t) for n, t in zip(names, tensors)}
 
 
-def _generator_entry(state: TrainState) -> dict:
-    entry = {
+def _state_entry(state: TrainState) -> dict:
+    return {
         "params": _named(state, state.params),
         "opt_state": {
             "mu": _named(state, state.mu),
@@ -141,6 +149,10 @@ def _generator_entry(state: TrainState) -> dict:
             "count": state.count,
         },
     }
+
+
+def _generator_entry(state: TrainState) -> dict:
+    entry = _state_entry(state)
     if state.ema_params:
         entry["ema_params"] = _named(state, state.ema_params)
     return entry
@@ -164,12 +176,14 @@ def save_checkpoint(
     *,
     pool: GeneratorPool,
     epoch: int,
+    d_state: Optional[TrainState] = None,
     model_config: Optional[ModelConfig] = None,
     block: bool = True,
 ) -> str:
-    """Write a complete training snapshot (every generator, the pool's
-    bookkeeping, the epoch) and, given ``model_config``, the architecture
-    sidecar. Returns the snapshot's final path."""
+    """Write a complete training snapshot (every generator, the
+    discriminator where given, the pool's bookkeeping, the epoch) and, given
+    ``model_config``, the architecture sidecar. Returns the snapshot's final
+    path."""
     global _writer, _in_flight
     # settle the in-flight save first: its commit must be visible to the
     # slot probe, and two writers must never race
@@ -185,6 +199,8 @@ def save_checkpoint(
         "pool_meta": pool.snapshot(),
         "epoch": epoch,
     }
+    if d_state is not None:
+        payload["discriminator"] = _state_entry(d_state)
     if block:
         _write(path, payload, (results_dir, prefix))
     else:
@@ -223,15 +239,26 @@ def _copy_into(state: TrainState, tensors: List[torch.Tensor], saved: dict,
         t.copy_(saved[n])
 
 
-def restore_checkpoint(results_dir: str, prefix: str, *, pool: GeneratorPool):
+def _restore_state(st: TrainState, entry: dict) -> None:
+    """Params and Adam state of a saved entry into ``st``, in place."""
+    _copy_into(st, st.params, entry["params"], "params")
+    _copy_into(st, st.mu, entry["opt_state"]["mu"], "Adam mu")
+    _copy_into(st, st.nu, entry["opt_state"]["nu"], "Adam nu")
+    st.count = int(entry["opt_state"]["count"])
+
+
+def restore_checkpoint(results_dir: str, prefix: str, *, pool: GeneratorPool,
+                       d_state: Optional[TrainState] = None):
     """Restore the newest committed snapshot in place into ``pool``'s
-    states, loading it straight onto their device. Returns (pool, epoch).
+    states (and ``d_state``'s), loading it straight onto their device.
+    Returns (pool, d_state, epoch).
 
     A snapshot with or without EMA shadows restores into a run with or
     without them: an EMA run resuming a pre-EMA snapshot warm-starts the
     shadows from the restored params; a run without EMA drops saved ones.
-    The pool's counters and, in auto-gate mode, a calibrated gate threshold
-    are restored too."""
+    The same holds for the discriminator across the two phases, and for
+    pool sizes (see the module's docstring). The pool's counters and, in
+    auto-gate mode, a calibrated gate threshold are restored too."""
     path = latest_ckpt_dir(results_dir, prefix)
     if path is None:
         raise FileNotFoundError(
@@ -240,19 +267,10 @@ def restore_checkpoint(results_dir: str, prefix: str, *, pool: GeneratorPool):
         )
     restored = _load(path, pool.leader.state.params[0].device)
     n_disk = len(restored["generators"])
-    if n_disk != len(pool.members):
-        raise NotImplementedError(
-            f"checkpoint '{prefix}' has {n_disk} generator(s), the pool "
-            f"{len(pool.members)}: resizing a pool on restore is not ported "
-            "yet (ROADMAP.md, queue 1: generator pool)"
-        )
     ema_warm_started = False
     for m, g in zip(pool.members, restored["generators"]):
         st = m.state
-        _copy_into(st, st.params, g["params"], "params")
-        _copy_into(st, st.mu, g["opt_state"]["mu"], "Adam mu")
-        _copy_into(st, st.nu, g["opt_state"]["nu"], "Adam nu")
-        st.count = int(g["opt_state"]["count"])
+        _restore_state(st, g)
         if st.ema_params:
             if "ema_params" in g:
                 _copy_into(st, st.ema_params, g["ema_params"], "EMA shadows")
@@ -276,7 +294,30 @@ def restore_checkpoint(results_dir: str, prefix: str, *, pool: GeneratorPool):
     if (gate is not None and pool.cfg.starting_gan_loss is None
             and math.isfinite(float(gate))):
         pool.gan_threshold = float(gate)
-    return pool, int(restored["epoch"])
+    if len(pool.members) > n_disk:
+        # the pool grew across phases: copies of the restored leader, each
+        # member keeping its own fresh Adam state
+        lead = pool.members[0].state
+        with torch.no_grad():
+            for m in pool.members[n_disk:]:
+                torch._foreach_copy_(m.state.params, lead.params)
+                if m.state.ema_params:
+                    torch._foreach_copy_(m.state.ema_params,
+                                         lead.ema_params or lead.params)
+        print(
+            f"checkpoint '{prefix}' has {n_disk} generator(s); pool wants "
+            f"{len(pool.members)} — extra members warm-started from the "
+            "restored leader"
+        )
+    elif len(pool.members) < n_disk:
+        print(
+            f"checkpoint '{prefix}' has {n_disk} generators; pool wants "
+            f"{len(pool.members)} — keeping the best (first) "
+            f"{len(pool.members)} of the loss-sorted snapshot"
+        )
+    if d_state is not None and "discriminator" in restored:
+        _restore_state(d_state, restored["discriminator"])
+    return pool, d_state, int(restored["epoch"])
 
 
 def load_model_config(results_dir: str, prefix: str) -> Optional[ModelConfig]:

@@ -1,18 +1,25 @@
-"""The training loop for the single-generator pixel phase, the counterpart of
-``srgan_tpu/training/loop.py``: ``Trainer`` (``train``, ``train_epoch``,
-``compute_score``, ``validate``) and the functional ``train``.
+"""The training loop, the counterpart of ``srgan_tpu/training/loop.py``:
+``Trainer`` (``train``, ``train_epoch``, ``compute_score``, ``validate``)
+and the functional ``train``, for one generator or a pool of them, in the
+pixel phase or the GAN phase.
 
-The ``Trainer`` holds a one-member ``GeneratorPool``, as the JAX one does;
-the checkpoints and the epoch record are built on it. Loss scalars stay on
-the device: every step packs them into one tensor, and the loop fetches
-batch k−1's while batch k is already queued on the card (one host fetch per
-batch, the JAX loop's lagged drain).
+The ``Trainer`` holds a ``GeneratorPool`` of N members, as the JAX one
+does; the checkpoints and the epoch record are built on it. A pool of more
+than one member runs the stacked pool (``training/stacked_pool.py``, the
+scan executor) unless ``PoolConfig.stacked`` is off, which runs the member
+list; the stacked state is mirrored back into the list pool before every
+snapshot. With ``use_gan`` the Trainer also holds the shared
+discriminator and its ``TrainState`` (Adam, no EMA).
+
+Loss scalars stay on the device: every batch packs them into one tensor,
+and the loop fetches batch k−1's while batch k is already queued on the
+card (one host fetch per batch, the JAX loop's lagged drain).
 
 One process drives one device. Not ported yet (each raises, naming its
-ROADMAP.md item): pools of more than one generator, the GAN phase and the
-perceptual term. Configs that the JAX ``Trainer`` refuses raise the same
-``ValueError`` here. ``debug_nans`` checks every drained loss vector and
-raises ``FloatingPointError`` at the first non-finite one (JAX turns on
+ROADMAP.md item): the perceptual term and the ``vmap`` pool executor.
+Configs that the JAX ``Trainer`` refuses raise the same ``ValueError``
+here. ``debug_nans`` checks every drained loss vector and raises
+``FloatingPointError`` at the first non-finite one (JAX turns on
 ``jax_debug_nans``).
 """
 
@@ -29,13 +36,22 @@ import torch
 
 from srgan_tpu_torch.config import Config
 from srgan_tpu_torch.data.pipeline import DeviceCacheBudget, TrainPipeline
+from srgan_tpu_torch.models.discriminator import init_discriminator
 from srgan_tpu_torch.models.srresnet import init_generator
 from srgan_tpu_torch.ops.resize import resize_bilinear
 from srgan_tpu_torch.training import checkpoint as ckpt
 from srgan_tpu_torch.training.pool import GeneratorPool, PoolMember
+from srgan_tpu_torch.training.stacked_pool import (
+    StackedGeneratorPool,
+    scanned_pool_gan_step,
+    scanned_pool_step,
+)
 from srgan_tpu_torch.training.steps import (
     PACKED_KEYS,
+    discriminator_step_on_sr,
     eval_step,
+    gan_train_step,
+    generator_gan_step,
     generator_pixel_step,
     infer_step,
 )
@@ -48,10 +64,21 @@ from srgan_tpu_torch.utils.plotting import save_comparison, save_rating_curve
 _SUM_KEYS = ("g_loss", "com_loss", "tv_loss", "g_d_loss", "d_loss", "p_loss")
 
 
+def _mix(seed: int, k: int) -> int:
+    """One int seed from (seed, k)."""
+    return int(np.random.SeedSequence((seed, k)).generate_state(1)[0])
+
+
 def _epoch_generator(device: torch.device, seed: int, epoch: int) -> torch.Generator:
     """A generator for one epoch's draws, seeded from (seed, epoch)."""
-    mixed = int(np.random.SeedSequence((seed, epoch)).generate_state(1)[0])
-    return torch.Generator(device=device).manual_seed(mixed)
+    return torch.Generator(device=device).manual_seed(_mix(seed, epoch))
+
+
+def _packed_names(n_members: int, has_d: bool) -> list:
+    """The names of a stacked batch's packed values: (5, N) in PACKED_KEYS
+    order, then d_loss."""
+    names = [f"{k}[{i}]" for k in PACKED_KEYS for i in range(n_members)]
+    return names + ["d_loss"] if has_d else names
 
 
 class Trainer:
@@ -74,15 +101,19 @@ class Trainer:
                 "perceptual_weight > 0 to enable the objective, or drop the "
                 "weights"
             )
-        if cfg.pool.num_generators > 1:
-            raise NotImplementedError(
-                "num_generators > 1: pools of more than one generator are "
-                "not ported yet (ROADMAP.md, queue 1, item 7: generator pool)"
+        n = cfg.pool.num_generators
+        # pools of more than one member run the stacked pool by default
+        self.use_stacked = cfg.pool.stacked and n > 1
+        if self.use_stacked and cfg.pool.member_exec not in ("vmap", "scan"):
+            raise ValueError(
+                f"PoolConfig.member_exec must be 'vmap' or 'scan', got "
+                f"{cfg.pool.member_exec!r}"
             )
-        if cfg.train.use_gan:
+        if self.use_stacked and cfg.pool.member_exec == "vmap":
             raise NotImplementedError(
-                "use_gan: the GAN phase is not ported yet (ROADMAP.md, "
-                "queue 1: GAN path)"
+                "PoolConfig.member_exec='vmap': the vmap pool executor is not "
+                "ported yet (ROADMAP.md, queue 1, item 7: generator pool); "
+                "'scan' computes the same updates"
             )
         if cfg.train.perceptual_weight > 0.0:
             raise NotImplementedError(
@@ -93,15 +124,32 @@ class Trainer:
         self.device = resolve_device(device)
         # compute_dtype "float32" is full fp32: cuDNN convs default to TF32
         disable_tf32()
-        model = init_generator(cfg.model, seed=cfg.train.seed, device=self.device)
-        state = TrainState(
-            model,
-            b1=cfg.train.adam_b1,
-            b2=cfg.train.adam_b2,
-            ema_decay=cfg.train.ema_decay,
-        )
-        self.pool = GeneratorPool([PoolMember(state=state)], cfg.pool,
-                                  seed=cfg.train.seed)
+        # member i's weights from (seed, i), D's from (seed, N + 1), as JAX
+        # splits its key into N + 2 and gives D the last
+        members = []
+        for i in range(n):
+            model = init_generator(cfg.model, seed=_mix(cfg.train.seed, i),
+                                   device=self.device)
+            members.append(PoolMember(state=TrainState(
+                model,
+                b1=cfg.train.adam_b1,
+                b2=cfg.train.adam_b2,
+                ema_decay=cfg.train.ema_decay,
+            )))
+        self.pool = GeneratorPool(members, cfg.pool, seed=cfg.train.seed)
+        self.d_state: Optional[TrainState] = None
+        if cfg.train.use_gan:
+            d_model = init_discriminator(
+                cfg.discriminator, seed=_mix(cfg.train.seed, n + 1),
+                device=self.device, sample_hw=cfg.data.hr_size,
+            )
+            self.d_state = TrainState(d_model, b1=cfg.train.adam_b1,
+                                      b2=cfg.train.adam_b2)
+        self.spool: Optional[StackedGeneratorPool] = None
+        if self.use_stacked:
+            self.spool = StackedGeneratorPool.create(
+                [m.state for m in members], cfg.pool, seed=cfg.train.seed
+            )
         self._best_psnr = float("-inf")  # keep_best watermark
         # Preemption flags: the SIGTERM handler installed by train() sets
         # _stop_requested; train_epoch then breaks at the next batch
@@ -124,18 +172,74 @@ class Trainer:
         """The current best generator. ``serve=True`` prefers the EMA shadow
         when one is trained (validation and scoring read the weights a user
         would serve)."""
-        state = self.pool.leader.state
+        if self.spool is not None:
+            state = self.spool.state[0]
+        else:
+            state = self.pool.leader.state
         return state.serve_model if serve else state.model
+
+    def _sync_pool_from_stacked(self) -> None:
+        """Mirror the stacked pool into the member list (the checkpoint
+        format): its states in pool order and its bookkeeping."""
+        if self.spool is None:
+            return
+        for m, s, meta in zip(self.pool.members, self.spool.state,
+                              self.spool.snapshot()):
+            m.state = s
+            m.running_loss = meta["running_loss"]
+            m.pre_loss = meta["pre_loss"]
+            m.gan_updates = meta["gan_updates"]
+            m.pixel_updates = meta["pixel_updates"]
+        self.pool.gan_threshold = self.spool.gan_threshold
+
+    def _rebuild_stacked_from_pool(self, start_epoch: int = 0) -> None:
+        """Rebuild the stacked pool after a restore, with all of the pool's
+        bookkeeping, and the scheduler reseeded from (seed, start_epoch) so
+        that its draws do not replay the run's start."""
+        if self.spool is None:
+            return
+        members = self.pool.members
+        self.spool = StackedGeneratorPool.create(
+            [m.state for m in members], self.cfg.pool,
+            seed=(self.cfg.train.seed, start_epoch),
+        )
+        self.spool.running_loss = np.asarray([m.running_loss for m in members])
+        self.spool.pre_loss = np.asarray([m.pre_loss for m in members])
+        self.spool.gan_updates = np.asarray([m.gan_updates for m in members], np.int64)
+        self.spool.pixel_updates = np.asarray([m.pixel_updates for m in members],
+                                              np.int64)
+        self.spool.gan_threshold = self.pool.gan_threshold
 
     def _should_stop(self, batch_idx: int) -> bool:
         """Batch-boundary preemption check: one process reads its own flag
         at every batch."""
         return self._stop_requested
 
-    def train_epoch(self, pipeline: TrainPipeline, epoch: int) -> dict:
+    def _check_finite(self, vals, names, epoch: int, batch_idx: int) -> None:
+        if self.cfg.train.debug_nans and not all(map(math.isfinite, vals)):
+            raise FloatingPointError(
+                f"debug_nans: non-finite loss in epoch {epoch + 1}, batch "
+                f"{batch_idx + 1}: " + ", ".join(
+                    f"{k}={v}" for k, v in zip(names, vals))
+            )
+
+    def _d_target(self, batch_idx: int) -> int:
+        """The member whose SR the discriminator trains on this batch
+        (``PoolConfig.d_train_target``): the leader, or each in turn."""
+        if self.cfg.pool.d_train_target == "round_robin":
+            return batch_idx % len(self.pool.members)
+        return 0
+
+    def _train_epoch_stacked(self, pipeline: TrainPipeline, epoch: int) -> dict:
+        """One epoch of the stacked pool: every member updates on every
+        batch through the scan executor, and with a discriminator, the one
+        D update of the batch follows the member loop."""
         cfg = self.cfg
         g_lr = epoch_lr(cfg.train, cfg.train.lr_generator, epoch)
+        d_lr = epoch_lr(cfg.train, cfg.train.lr_discriminator, epoch)
         gen = _epoch_generator(pipeline.device, cfg.train.seed, epoch)
+        use_gan = self.d_state is not None
+        names = _packed_names(self.spool.n, use_gan)
 
         sums = dict.fromkeys(_SUM_KEYS, 0.0)
         n_batches = 0
@@ -143,35 +247,39 @@ class Trainer:
         progress = ProgressLine(cfg.train.progress, total=pipeline.steps_per_epoch())
 
         def drain(packed, batch_idx):
-            # one host fetch per batch: the step's packed loss vector
-            vals = packed.tolist()
-            if cfg.train.debug_nans and not all(map(math.isfinite, vals)):
-                raise FloatingPointError(
-                    f"debug_nans: non-finite loss in epoch {epoch + 1}, batch "
-                    f"{batch_idx + 1}: " + ", ".join(
-                        f"{k}={v}" for k, v in zip(PACKED_KEYS, vals))
-                )
-            for k, v in zip(PACKED_KEYS, vals):
-                sums[k] += v
-            # the ordering signal is the pixel loss only
-            self.pool.record_loss(0, vals[1], used_gan=False)
+            # one host fetch a batch: (5, N) losses, + d_loss in the GAN phase
+            vals = packed.reshape(-1).tolist()
+            self._check_finite(vals, names, epoch, batch_idx)
+            if use_gan:
+                sums["d_loss"] += vals.pop()
+            g, com, tv, g_d, p = np.asarray(vals).reshape(5, -1)
+            self.spool.record_losses(com)
+            for k, v in zip(PACKED_KEYS, (g, com, tv, g_d, p)):
+                sums[k] += float(v[0])  # the epoch record logs member 0
             progress.update(
-                epoch, n_batches, {"g_loss": vals[0]},
+                epoch, n_batches,
+                {"g_loss": float(g[0]),
+                 "d_loss": sums["d_loss"] / max(1, n_batches) if use_gan else None},
                 self.throughput.images_per_sec(),
             )
 
-        member = self.pool.leader
         pending: Optional[tuple] = None
         for hr, lr_imgs in pipeline.epoch(epoch, gen):
             if self._should_stop(n_batches):
-                # batch-boundary stop: the drain below settles the last step;
-                # train() snapshots and --resume restarts this epoch
                 self._epoch_interrupted = True
                 break
-            member.state, metrics = generator_pixel_step(
-                member.state, hr, lr_imgs, g_lr
-            )
-            # batch k is queued before batch k−1's scalars are fetched
+            # batch k's mask is drawn before batch k−1's losses are drained:
+            # the gate reads losses through batch k−2, as in JAX
+            gan_mask = self.spool.sample_gan_mask(use_gan)
+            if use_gan:
+                self.spool.state, self.d_state, metrics = scanned_pool_gan_step(
+                    self.spool.state, self.d_state, hr, lr_imgs, gan_mask,
+                    g_lr, d_lr, d_target_idx=self._d_target(n_batches),
+                )
+            else:
+                self.spool.state, metrics = scanned_pool_step(
+                    self.spool.state, hr, lr_imgs, g_lr,
+                )
             if pending is not None:
                 drain(*pending)
             pending = (metrics["packed"], n_batches)
@@ -180,11 +288,112 @@ class Trainer:
         if pending is not None:
             drain(*pending)
         progress.close()
+        return self._epoch_average(sums, n_batches)
 
+    def _epoch_average(self, sums: dict, n_batches: int) -> dict:
         avg = {k: (v / max(1, n_batches)) for k, v in sums.items()}
         avg["images_per_sec"] = self.throughput.images_per_sec()
         avg["n_batches"] = n_batches
         return avg
+
+    def train_epoch(self, pipeline: TrainPipeline, epoch: int) -> dict:
+        """One epoch. The member list: each member in pool order takes a
+        pixel or a GAN update (one ``rng.random()`` a member with a
+        discriminator); the d-target member's pre-update SR then feeds the
+        shared D update. A one-member pool whose member chose GAN runs the
+        fused ``gan_train_step``, its ``d_loss`` in its packed 6-vector."""
+        if self.spool is not None:
+            return self._train_epoch_stacked(pipeline, epoch)
+        cfg = self.cfg
+        g_lr = epoch_lr(cfg.train, cfg.train.lr_generator, epoch)
+        d_lr = epoch_lr(cfg.train, cfg.train.lr_discriminator, epoch)
+        gen = _epoch_generator(pipeline.device, cfg.train.seed, epoch)
+        members = self.pool.members
+        has_d = self.d_state is not None
+
+        sums = dict.fromkeys(_SUM_KEYS, 0.0)
+        n_batches = 0
+        self.throughput.begin()
+        progress = ProgressLine(cfg.train.progress, total=pipeline.steps_per_epoch())
+
+        def drain(packed, layout, batch_idx):
+            # one host fetch a batch: every member's packed vector, then a
+            # separate D update's loss
+            vals = packed.tolist()
+            names = [f"{k}[{i}]" for i, _, size in layout
+                     for k in (*PACKED_KEYS, "d_loss")[:size]]
+            if len(names) < len(vals):
+                names.append("d_loss")
+            self._check_finite(vals, names, epoch, batch_idx)
+            at = 0
+            for i, used_gan, size in layout:
+                v = vals[at:at + size]
+                at += size
+                if size == 6:
+                    sums["d_loss"] += v[5]
+                # the ordering signal is the pixel loss only
+                self.pool.record_loss(i, v[1], used_gan=used_gan)
+                if i == 0:
+                    for k, x in zip(PACKED_KEYS, v):
+                        sums[k] += x
+            if at < len(vals):
+                sums["d_loss"] += vals[at]
+            progress.update(
+                epoch, n_batches,
+                {"g_loss": vals[0],
+                 "d_loss": sums["d_loss"] / max(1, n_batches) if has_d else None},
+                self.throughput.images_per_sec(),
+            )
+
+        pending: Optional[tuple] = None
+        for hr, lr_imgs in pipeline.epoch(epoch, gen):
+            if self._should_stop(n_batches):
+                # batch-boundary stop: the drain below settles the last step;
+                # train() snapshots and --resume restarts this epoch
+                self._epoch_interrupted = True
+                break
+            d_idx = self._d_target(n_batches) if has_d else None
+            packed, layout = [], []
+            sr_for_d, d_in_packed = None, False
+            for i, member in enumerate(members):
+                used_gan = has_d and self.pool.choose_gan(i)
+                want_sr = i == d_idx
+                if used_gan and want_sr and len(members) == 1:
+                    # one member: its GAN update and the D update fuse; with
+                    # more, members after d_idx would read the updated D
+                    member.state, self.d_state, metrics = gan_train_step(
+                        member.state, self.d_state, hr, lr_imgs, g_lr, d_lr,
+                    )
+                    d_in_packed = True
+                elif used_gan:
+                    member.state, metrics = generator_gan_step(
+                        member.state, self.d_state.model, hr, lr_imgs, g_lr,
+                        return_sr=want_sr,
+                    )
+                else:
+                    member.state, metrics = generator_pixel_step(
+                        member.state, hr, lr_imgs, g_lr, return_sr=want_sr,
+                    )
+                if want_sr and "sr" in metrics:
+                    sr_for_d = metrics.pop("sr")
+                packed.append(metrics["packed"])
+                layout.append((i, used_gan, metrics["packed"].numel()))
+            if has_d and not d_in_packed:
+                # the shared D, after every member read it
+                self.d_state, d_metrics = discriminator_step_on_sr(
+                    self.d_state, hr, sr_for_d, d_lr
+                )
+                packed.append(d_metrics["d_loss"].reshape(1))
+            # batch k is queued before batch k−1's scalars are fetched
+            if pending is not None:
+                drain(*pending)
+            pending = (torch.cat(packed), layout, n_batches)
+            n_batches += 1
+            self.throughput.add(hr.shape[0])
+        if pending is not None:
+            drain(*pending)
+        progress.close()
+        return self._epoch_average(sums, n_batches)
 
     # ------------------------------------------------------------------ #
 
@@ -223,9 +432,11 @@ class Trainer:
     # ------------------------------------------------------------------ #
 
     def _save(self, prefix: str, epoch: int, block: bool = True) -> None:
+        self._sync_pool_from_stacked()
         ckpt.save_checkpoint(
-            self.cfg.train.results_dir, prefix, pool=self.pool, epoch=epoch,
-            model_config=self.cfg.model, block=block,
+            self.cfg.train.results_dir, prefix, pool=self.pool,
+            d_state=self.d_state, epoch=epoch, model_config=self.cfg.model,
+            block=block,
         )
 
     def train(
@@ -248,17 +459,21 @@ class Trainer:
         cfg = self.cfg
         start_epoch = 0
         if continue_training:
-            self.pool, saved_epoch = ckpt.restore_checkpoint(
-                cfg.train.results_dir, cfg.train.run_prefix, pool=self.pool
+            self.pool, self.d_state, saved_epoch = ckpt.restore_checkpoint(
+                cfg.train.results_dir, cfg.train.run_prefix, pool=self.pool,
+                d_state=self.d_state,
             )
             self.pool.reseed((cfg.train.seed, saved_epoch))
+            self._rebuild_stacked_from_pool(saved_epoch)
             self.cfg = cfg = cfg.replace(train=ckpt.finetune_entry(cfg.train))
             self.logger = MetricsLogger(cfg.train.results_dir, self._log_prefix())
         elif resume:
-            self.pool, start_epoch = ckpt.restore_checkpoint(
-                cfg.train.results_dir, cfg.train.run_prefix, pool=self.pool
+            self.pool, self.d_state, start_epoch = ckpt.restore_checkpoint(
+                cfg.train.results_dir, cfg.train.run_prefix, pool=self.pool,
+                d_state=self.d_state,
             )
             self.pool.reseed((cfg.train.seed, start_epoch))
+            self._rebuild_stacked_from_pool(start_epoch)
             # keep the earlier epochs' records and recover the keep_best
             # watermark from them; NaN psnr records (a diverged epoch, an
             # empty validation set) must not poison it
@@ -332,7 +547,8 @@ class Trainer:
                         "interrupted": True,
                         "interrupted_after_batches": train_metrics["n_batches"],
                     }
-                self.pool.end_epoch()
+                active_pool = self.spool if self.spool is not None else self.pool
+                active_pool.end_epoch()
 
                 if (cfg.train.checkpoint_every
                         and (epoch + 1) % cfg.train.checkpoint_every == 0):
@@ -358,12 +574,12 @@ class Trainer:
                     "psnr": psnr,
                     "ssim": ssim,
                     "wall_s": time.perf_counter() - t0,
-                    "pool": self.pool.snapshot(),
+                    "pool": active_pool.snapshot(),
                     **train_metrics,
                 }
-                if self.pool.gan_threshold is not None:
+                if active_pool.gan_threshold is not None:
                     # the gate's (possibly auto-calibrated) threshold
-                    record["gan_threshold"] = self.pool.gan_threshold
+                    record["gan_threshold"] = active_pool.gan_threshold
                 # cfg.train.reduce_metrics: the cross-process mean is the
                 # identity on one process
                 self.logger.log(record)

@@ -1,6 +1,7 @@
 """The weight bridges: the flax param tree of
-``srgan_tpu.models.srresnet.SRResNet`` ↔ this port's ``state_dict``, and
-the JAX residual tower's ``TowerParams`` ↔ the port's (at the end).
+``srgan_tpu.models.srresnet.SRResNet`` ↔ this port's ``state_dict``, the
+discriminator's (``Conv_i`` ↔ ``convs.i``), and the JAX residual tower's
+``TowerParams`` ↔ the port's (at the end).
 
 Conv kernels are HWIO in flax and OIHW in torch. Names map as:
 
@@ -102,6 +103,34 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
             )
         else:
             sub["scale" if param == "weight" else "bias"] = arr
+    return tree
+
+
+def discriminator_from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """flax param tree of ``srgan_tpu.models.discriminator.Discriminator``
+    → the port's ``state_dict``: ``Conv_i`` ↔ ``convs.i`` (its GroupNorms
+    have no parameters)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaf in tree.items():
+        i = int(_CONV.match(name).group(1))
+        k = np.asarray(leaf["kernel"], np.float32)
+        sd[f"convs.{i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+        sd[f"convs.{i}.bias"] = torch.from_numpy(
+            np.asarray(leaf["bias"], np.float32).copy())
+    return sd
+
+
+def discriminator_to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The port's discriminator ``state_dict`` → flax param tree of numpy
+    arrays (the inverse of :func:`discriminator_from_jax_params`)."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        _, i, param = key.split(".")  # convs.i.weight | convs.i.bias
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        tree.setdefault(f"Conv_{i}", {})[
+            "kernel" if param == "weight" else "bias"
+        ] = arr.transpose(2, 3, 1, 0) if param == "weight" else arr
     return tree
 
 

@@ -219,7 +219,7 @@ class TestRestore:
         ckpt.save_checkpoint(str(tmp_path), "Training", pool=run, epoch=1)
         back = _pool(ema_decay, seed=5)
         params_before = back.leader.state.params
-        back, epoch = ckpt.restore_checkpoint(str(tmp_path), "Training", pool=back)
+        back, _, epoch = ckpt.restore_checkpoint(str(tmp_path), "Training", pool=back)
         assert epoch == 1
         assert back.leader.state.params is params_before  # copied in place
         assert back.snapshot() == run.snapshot()

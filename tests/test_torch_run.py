@@ -260,10 +260,9 @@ class TestCLI:
     @pytest.mark.parametrize("flag,item", [
         (["--profile-dir", "trace"], "item 11"),
         (["--multihost"], "item 10"),
-        (["--gan"], "GAN path"),
-        (["--num-generators", "2"], "item 7"),
+        (["--pool-exec", "vmap"], "item 7"),
         (["--perceptual", "0.1"], "perceptual prior"),
-    ], ids=["profile_dir", "multihost", "gan", "pool", "perceptual"])
+    ], ids=["profile_dir", "multihost", "pool_exec_vmap", "perceptual"])
     def test_unported_flags_name_roadmap(self, tmp_path, flag, item):
         with pytest.raises(NotImplementedError, match=item):
             cli.main(["train", "--results-dir", str(tmp_path), "--device", "cpu",

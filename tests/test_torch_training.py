@@ -228,8 +228,7 @@ class TestLogging:
 class TestTrainer:
     def test_unported_paths_name_roadmap(self):
         for cfg in (
-            Config(pool=PoolConfig(num_generators=3)),
-            Config(train=TrainConfig(use_gan=True)),
+            Config(pool=PoolConfig(num_generators=3, member_exec="vmap")),
             Config(train=TrainConfig(perceptual_weight=0.1)),
         ):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
