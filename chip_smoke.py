@@ -74,7 +74,30 @@ Phases, each of which must pass (any failure exits non-zero):
      beside the bound, the plain version and the cuDNN chain (the port's
      ``ResidualBlock`` x16 as the model runs it in that dtype, with zero
      conv biases), achieved TFLOP/s of the
-     kernel and the chain, and peak memory.
+     kernel and the chain, and peak memory;
+  9. serving and evaluation, at the flagship width from the
+     entry point's own results directory (the bf16 ``Training`` snapshot
+     and the ``Post-Training`` pool of 3), TF32 off: ``Upscaler`` fp32
+     (random, seed 0) on the card against the CPU at LR (2, 64, 96, 3)
+     (1e-4·max; uint8 within 1 LSB, and bit-equal to the host quantisation
+     of ``upscale``); ``upscale_u8`` at batch 8 of LR
+     128x256, bf16 and fp32 (ms/batch by CUDA events, img/s, output MP/s,
+     the forward alone, peak memory, bytes fetched); the pool ensemble at
+     batch 8, TTA and TTA + ensemble at batch 1, against the plain forward;
+     ``upscale_tiled`` of one LR 1080x1920 image (tile 256, overlap 16,
+     batch 16, uint8 tiles) with its wall, SR-call and forward seconds and
+     the host blend's share, and a one-tile image equal to ``upscale``;
+     ``python3 -m srgan_tpu_torch.cli upscale-dir --ensemble`` as a
+     subprocess on 32 PNGs of 128x256, 3 odd sizes and a corrupt file (35
+     outputs at 4x, the summary and timing lines); ``eval`` through
+     ``cli.main`` on 12 pairs (default quirks) and ``--no-extra-downscale
+     --bucketed`` on 6 pairs of 3 sizes, and an fp32 eval of 2 pairs on
+     the card against the CPU (PSNR within 1e-3 dB); bf16 on the card
+     against the CPU, random weights and the snapshot, within the CPU's
+     own bf16 error e against the fp32 forward of the same weights
+     (|card − fp32| ≤ 1.25 e, |card − CPU| ≤ √2 e). The launch
+     counts are zeroed before the phase and read after: K1-K5 must not
+     have launched.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. It exits non-zero without a result where CUDA is unavailable or the
@@ -194,7 +217,13 @@ def loss_inputs(dev):
 def loss_device_times(fns: dict, reps: int = 20) -> dict:
     """Device ms per launch of each loss kernel and finalise, from the
     profiler, over ``reps`` calls of each wrapper: the wrappers' host cost
-    (which back-to-back CUDA-event windows may include) cannot hide them."""
+    (which back-to-back CUDA-event windows may include) cannot hide them.
+    A first, uncounted session starts the profiler's device tracing: the
+    first session of a process can miss its first launch."""
+    with profile(activities=[ProfilerActivity.CUDA]):
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for fn in fns.values():
             for _ in range(reps):
@@ -725,9 +754,9 @@ def profile_epoch(trainer, pipe, steps: int, tag: str) -> None:
         print(f"profile {tag}:   {us / 1e3 / steps:9.3f} ms/step  {name[:100]}")
 
 
-def _cli(argv) -> str:
-    """``cli.main(argv)`` in this process (so its launches count here); its
-    printout, also echoed."""
+def _cli(argv):
+    """``cli.main(argv)`` in this process (so its launches count here): its
+    return value and its printout, also echoed."""
     import contextlib
     import io
 
@@ -735,12 +764,12 @@ def _cli(argv) -> str:
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        cli.main(argv)
+        out = cli.main(argv)
     print(buf.getvalue(), end="", flush=True)
-    return buf.getvalue()
+    return out, buf.getvalue()
 
 
-def entry_point_phase(rk, dev) -> dict:
+def entry_point_phase(rk, dev, root: str):
     """The train entry point on the card at the flagship size in bf16
     (F=64, 16 blocks, HR 512x1024, batch 12) on PNG folders of 36 + 12
     smooth clips (the 0.7 split leaves 2 steps an epoch): ``python3 -m
@@ -748,103 +777,99 @@ def entry_point_phase(rk, dev) -> dict:
     ``--checkpoint-every 1 --keep-best --validate-every 1``; then
     ``--resume`` to epoch 3 and ``--continue-training --gan
     --num-generators 3 --epochs 1`` through ``cli.main``, with the launch
-    counts zeroed just before each and read just after. Returns the two
-    counted legs' launch counts."""
-    from PIL import Image
-
+    counts zeroed just before each and read just after. Works in ``root``;
+    returns the two counted legs' launch counts and the results directory,
+    which the serving phase serves."""
     from srgan_tpu_torch.training import checkpoint as ckpt
 
     steps = 2
     t_phase = time.perf_counter()
     counted = {}
-    with tempfile.TemporaryDirectory() as root:
-        for name, n, seed in (("train", 36, 3), ("val", 12, 4)):
-            os.makedirs(os.path.join(root, name))
-            for i, img in enumerate(smooth_clips(dev, n, seed)):
-                Image.fromarray(img).save(os.path.join(root, name, f"clip_{i:02d}.png"))
-        res = os.path.join(root, "results")
-        flags = ["train", "--train-dir", os.path.join(root, "train"), "--val-dir",
-                 os.path.join(root, "val"), "--batch-size", "12", "--bf16",
-                 "--checkpoint-every", "1", "--keep-best", "--validate-every", "1",
-                 "--results-dir", res, "--progress", "off"]
+    for name, n, seed in (("train", 36, 3), ("val", 12, 4)):
+        _png_folder(os.path.join(root, name), smooth_clips(dev, n, seed))
+    res = os.path.join(root, "results")
+    flags = ["train", "--train-dir", os.path.join(root, "train"), "--val-dir",
+             os.path.join(root, "val"), "--batch-size", "12", "--bf16",
+             "--checkpoint-every", "1", "--keep-best", "--validate-every", "1",
+             "--results-dir", res, "--progress", "off"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "srgan_tpu_torch.cli", *flags, "--epochs", "2"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600,
+    )
+    first_s = time.perf_counter() - t0
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0,
+          f"entry point: the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    check("Epoch [2/2] Training" in proc.stdout, "entry point: no epoch 2 line")
+    check(os.path.exists(os.path.join(res, "Trainingtraining_loss_curve_0.png")),
+          "entry point: the CLI wrote no rating curve")
+    epoch2 = ckpt.restore_generator_params(res, "Training")
+
+    legs = (("resume", ["--epochs", "3", "--resume"], 1),
+            ("gan pool", ["--epochs", "1", "--continue-training", "--gan",
+                          "--num-generators", "3"], 3))
+    times, printed = {}, {}
+    for leg, extra, per_step in legs:
+        rk.reset_launches()
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "srgan_tpu_torch.cli", *flags, "--epochs", "2"],
-            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-            text=True, timeout=600,
-        )
-        first_s = time.perf_counter() - t0
-        print(proc.stdout, end="", flush=True)
-        check(proc.returncode == 0,
-              f"entry point: the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
-        check("Epoch [2/2] Training" in proc.stdout, "entry point: no epoch 2 line")
-        check(os.path.exists(os.path.join(res, "Trainingtraining_loss_curve_0.png")),
-              "entry point: the CLI wrote no rating curve")
-        epoch2 = ckpt.restore_generator_params(res, "Training")
+        _, printed[leg] = _cli(flags + extra)
+        torch.cuda.synchronize()
+        times[leg] = time.perf_counter() - t0
+        counts, paths = dict(rk.launches), dict(rk.paths)
+        counted[leg] = counts
+        for name in LOSS_KERNELS:
+            want = steps * per_step
+            check(counts[name] == want and paths[f"{name}_vec"] == want,
+                  f"entry point {leg}: {name} launches {counts[name]}, paths "
+                  f"{paths}; expected {want} on the vector path")
 
-        legs = (("resume", ["--epochs", "3", "--resume"], 1),
-                ("gan pool", ["--epochs", "1", "--continue-training", "--gan",
-                              "--num-generators", "3"], 3))
-        times, printed = {}, {}
-        for leg, extra, per_step in legs:
-            rk.reset_launches()
-            t0 = time.perf_counter()
-            printed[leg] = _cli(flags + extra)
-            torch.cuda.synchronize()
-            times[leg] = time.perf_counter() - t0
-            counts, paths = dict(rk.launches), dict(rk.paths)
-            counted[leg] = counts
-            for name in LOSS_KERNELS:
-                want = steps * per_step
-                check(counts[name] == want and paths[f"{name}_vec"] == want,
-                      f"entry point {leg}: {name} launches {counts[name]}, paths "
-                      f"{paths}; expected {want} on the vector path")
-
-        records = {}
-        for prefix, epochs in (("Training", [1, 2, 3]), ("Post-Training", [1])):
-            with open(os.path.join(res, f"{prefix}_metrics.jsonl")) as f:
-                records[prefix] = [json.loads(line) for line in f if line.strip()]
-            recs = records[prefix]
-            check([r["epoch"] for r in recs] == epochs,
-                  f"entry point: {prefix} JSONL epochs {[r['epoch'] for r in recs]}")
-            check(all(math.isfinite(r[k]) for r in recs for k in ("g_loss", "psnr")),
-                  f"entry point: non-finite loss or psnr in the {prefix} JSONL")
-            check(all(r["n_batches"] == steps for r in recs),
-                  f"entry point: {prefix} batches an epoch {[r['n_batches'] for r in recs]}")
-        gan_rec = records["Post-Training"][0]
-        check(len(gan_rec["pool"]) == 3 and math.isfinite(gan_rec["d_loss"]),
-              f"entry point gan pool: record {gan_rec}")
-        check("has 1 generator(s); pool wants 3" in printed["gan pool"],
-              "entry point gan pool: no pool-growth message")
-        latest = ckpt.latest_ckpt_dir(res, "Training")
-        check(os.path.basename(latest).startswith("Training_ckpt@3"),
-              f"entry point: latest snapshot {latest}")
-        best = ckpt.latest_ckpt_dir(res, "Training-best")
-        check(best is not None, "entry point: no Training-best snapshot")
-        post = ckpt.latest_ckpt_dir(res, "Post-Training")
-        payload = torch.load(os.path.join(post, ckpt.PAYLOAD_FILE), weights_only=True)
-        check(len(payload["generators"]) == 3 and "discriminator" in payload,
-              f"entry point gan pool: snapshot {os.path.basename(post)} holds "
-              f"{len(payload['generators'])} generators, discriminator "
-              f"{'discriminator' in payload}")
-        del payload
-        sidecar = ckpt.load_model_config(res, "Training")
-        check(sidecar is not None and sidecar.compute_dtype == "bfloat16"
-              and sidecar.num_features == 64 and sidecar.num_residuals == 16,
-              f"entry point: sidecar {sidecar}")
-        names = sorted(os.listdir(res))
-        want = ["Training_metrics.jsonl", "Training_model.json", "Training-best_model.json",
-                "Trainingtraining_loss_curve_0.png", "Post-Training_metrics.jsonl",
-                "Post-Training_model.json", "Post-Trainingtraining_loss_curve_0.png",
-                "Post-Training_epoch_1_0_comparison.png"]
-        want += [f"Training_epoch_{e}_0_comparison.png" for e in (1, 2, 3)]
-        check(set(want) <= set(names), f"entry point: artifacts {names}, want {want}")
-        epoch3 = ckpt.restore_generator_params(res, "Training")
-        check(epoch3.keys() == epoch2.keys()
-              and any(not torch.equal(epoch3[k], epoch2[k]) for k in epoch2),
-              "entry point: the resumed epoch 3 left the params as they were")
-        check(all(torch.isfinite(t).all() for t in epoch3.values()),
-              "entry point: non-finite params after the resume")
+    records = {}
+    for prefix, epochs in (("Training", [1, 2, 3]), ("Post-Training", [1])):
+        with open(os.path.join(res, f"{prefix}_metrics.jsonl")) as f:
+            records[prefix] = [json.loads(line) for line in f if line.strip()]
+        recs = records[prefix]
+        check([r["epoch"] for r in recs] == epochs,
+              f"entry point: {prefix} JSONL epochs {[r['epoch'] for r in recs]}")
+        check(all(math.isfinite(r[k]) for r in recs for k in ("g_loss", "psnr")),
+              f"entry point: non-finite loss or psnr in the {prefix} JSONL")
+        check(all(r["n_batches"] == steps for r in recs),
+              f"entry point: {prefix} batches an epoch {[r['n_batches'] for r in recs]}")
+    gan_rec = records["Post-Training"][0]
+    check(len(gan_rec["pool"]) == 3 and math.isfinite(gan_rec["d_loss"]),
+          f"entry point gan pool: record {gan_rec}")
+    check("has 1 generator(s); pool wants 3" in printed["gan pool"],
+          "entry point gan pool: no pool-growth message")
+    latest = ckpt.latest_ckpt_dir(res, "Training")
+    check(os.path.basename(latest).startswith("Training_ckpt@3"),
+          f"entry point: latest snapshot {latest}")
+    best = ckpt.latest_ckpt_dir(res, "Training-best")
+    check(best is not None, "entry point: no Training-best snapshot")
+    post = ckpt.latest_ckpt_dir(res, "Post-Training")
+    payload = torch.load(os.path.join(post, ckpt.PAYLOAD_FILE), weights_only=True)
+    check(len(payload["generators"]) == 3 and "discriminator" in payload,
+          f"entry point gan pool: snapshot {os.path.basename(post)} holds "
+          f"{len(payload['generators'])} generators, discriminator "
+          f"{'discriminator' in payload}")
+    del payload
+    sidecar = ckpt.load_model_config(res, "Training")
+    check(sidecar is not None and sidecar.compute_dtype == "bfloat16"
+          and sidecar.num_features == 64 and sidecar.num_residuals == 16,
+          f"entry point: sidecar {sidecar}")
+    names = sorted(os.listdir(res))
+    want = ["Training_metrics.jsonl", "Training_model.json", "Training-best_model.json",
+            "Trainingtraining_loss_curve_0.png", "Post-Training_metrics.jsonl",
+            "Post-Training_model.json", "Post-Trainingtraining_loss_curve_0.png",
+            "Post-Training_epoch_1_0_comparison.png"]
+    want += [f"Training_epoch_{e}_0_comparison.png" for e in (1, 2, 3)]
+    check(set(want) <= set(names), f"entry point: artifacts {names}, want {want}")
+    epoch3 = ckpt.restore_generator_params(res, "Training")
+    check(epoch3.keys() == epoch2.keys()
+          and any(not torch.equal(epoch3[k], epoch2[k]) for k in epoch2),
+          "entry point: the resumed epoch 3 left the params as they were")
+    check(all(torch.isfinite(t).all() for t in epoch3.values()),
+          "entry point: non-finite params after the resume")
     print(f"entry point bf16 batch 12: CLI subprocess 2 epochs in {first_s:.1f} s, resume "
           f"to epoch 3 in {times['resume']:.1f} s, --continue-training --gan "
           f"--num-generators 3 in {times['gan pool']:.1f} s (phase "
@@ -854,7 +879,292 @@ def entry_point_phase(rk, dev) -> dict:
           f"{[(m['gan_updates'], m['pixel_updates']) for m in gan_rec['pool']]}; launches "
           f"{counted}; latest {os.path.basename(latest)}, best {os.path.basename(best)}, "
           f"gan pool {os.path.basename(post)}; artifacts {names}", flush=True)
-    return counted
+    return counted, res
+
+
+SERVE_LR = (128, 256)  # the LR of HR 512x1024 at 4x
+SERVE_BATCH = 8
+TILED_LR = (1080, 1920)
+DIR_TIMES_RE = re.compile(r"upscale_directory: \d+ image\(s\) in .*")
+
+
+def _png_folder(path: str, images) -> None:
+    from PIL import Image
+
+    os.makedirs(path, exist_ok=True)
+    for i, img in enumerate(images):
+        Image.fromarray(img).save(os.path.join(path, f"img_{i:02d}.png"))
+
+
+def _pairs_folder(path: str, hrs, factor: int = 4) -> None:
+    """Paired LRbicx4/original folders: each HR and its PIL bicubic ÷factor."""
+    from PIL import Image
+
+    lrs = [np.asarray(Image.fromarray(hr).resize(
+        (hr.shape[1] // factor, hr.shape[0] // factor), Image.BICUBIC)) for hr in hrs]
+    _png_folder(os.path.join(path, "original"), hrs)
+    _png_folder(os.path.join(path, "LRbicx4"), lrs)
+
+
+class _ForwardEvents:
+    """CUDA events around every forward of ``model``: the device time of
+    the forwards, apart from the host work between them."""
+
+    def __init__(self, model):
+        self.pairs = []
+        self.handles = [
+            model.register_forward_pre_hook(lambda *_: self._record(True)),
+            model.register_forward_hook(lambda *_: self._record(False)),
+        ]
+
+    def _record(self, start: bool):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if start:
+            self.pairs.append([ev])
+        else:
+            self.pairs[-1].append(ev)
+
+    def seconds(self) -> float:
+        torch.cuda.synchronize()
+        for h in self.handles:
+            h.remove()
+        return sum(a.elapsed_time(b) for a, b in self.pairs) / 1e3
+
+
+def serve_phase(rk, tk, dev, res: str) -> dict:
+    """Serving and evaluation on the card at the flagship width (F=64, 16
+    blocks, 4x subpixel head), TF32 off, from the entry-point phase's
+    results directory ``res``: the bf16 ``Training`` snapshot and the
+    ``Post-Training`` pool of 3. The launch counts are zeroed just before
+    and read just after: no loss or tower kernel may run at serve time.
+    Returns those counts."""
+    import dataclasses
+
+    from srgan_tpu_torch.config import ModelConfig
+    from srgan_tpu_torch.eval.evaluation import evaluate_model
+    from srgan_tpu_torch.eval.inference import Upscaler
+    from srgan_tpu_torch.training.checkpoint import load_model_config
+
+    t_phase = time.perf_counter()
+    rk.reset_launches()
+    tk.reset_launches()
+    rng = np.random.default_rng(0)
+
+    # 1. the card against the CPU in fp32, same weights and input (the bf16
+    # snapshot's comparison closes the phase)
+    x = rng.random((2, 64, 96, 3), dtype=np.float32)
+    fp32 = Upscaler.random_init(seed=0, device=dev)
+    cpu32 = Upscaler.random_init(seed=0, device="cpu")
+    y_card, y_cpu = fp32.upscale(x), cpu32.upscale(x)
+    err = float(np.abs(y_card - y_cpu).max() / np.abs(y_cpu).max())
+    check(err <= 1e-4, f"serve fp32: card vs CPU max|dy| {err:.3e}*max > 1e-4")
+    u_card = fp32.upscale_u8(x)
+    lsb = int(np.abs(u_card.astype(int) - cpu32.upscale_u8(x).astype(int)).max())
+    check(lsb <= 1, f"serve fp32: upscale_u8 card vs CPU {lsb} LSB > 1")
+    host = np.floor(np.clip(y_card, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    check(np.array_equal(u_card, host),
+          "serve fp32: upscale_u8 on the card != the host quantisation of upscale")
+    print(f"serve fp32 card vs CPU, LR {x.shape}: max|dy| {err:.3e}*max, uint8 "
+          f"{lsb} LSB; the card's uint8 = the host quantisation", flush=True)
+    bf16 = Upscaler.from_checkpoint(res, "Training", device=dev)
+    check(bf16.model.compute_dtype == torch.bfloat16, "serve: the snapshot is not bf16")
+
+    # 2. direct serving, uint8 off the card
+    h, w = SERVE_LR
+    out_mp = SERVE_BATCH * 16 * h * w / 1e6
+    lr8 = smooth_clips(dev, SERVE_BATCH, 11, hw=SERVE_LR)
+    lr8_dev = torch.from_numpy(lr8).to(dev).float() / 255.0
+    times = {}
+    for tag, up in (("bf16 snapshot", bf16), ("fp32 random", fp32)):
+        torch.cuda.reset_peak_memory_stats()
+        out = up.upscale_u8(lr8)
+        check(out.shape == (SERVE_BATCH, 4 * h, 4 * w, 3) and out.dtype == np.uint8,
+              f"serve {tag}: output {out.shape} {out.dtype}")
+        ms = statistics.median(time_ms(lambda: up.upscale_u8(lr8), windows=5, reps=1))
+        fwd_ms = statistics.median(time_ms(lambda: up.forward(lr8_dev), windows=5, reps=1))
+        times[tag] = ms
+        print(f"serve direct {tag}: batch {SERVE_BATCH} LR {h}x{w}: upscale_u8 "
+              f"{ms:.3f} ms/batch ({SERVE_BATCH / ms * 1e3:.2f} img/s, "
+              f"{out_mp / ms * 1e3:.1f} output MP/s), forward alone on the card "
+              f"{fwd_ms:.3f} ms; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; fetched "
+              f"{out.nbytes} B/batch (uint8; {out.nbytes * 4} B as float32)", flush=True)
+
+    # 3. the pool ensemble and TTA
+    pool = Upscaler.from_checkpoint(res, "Post-Training", ensemble=True, device=dev)
+    check(pool.ensemble and len(pool.members) == 3,
+          f"serve: the Post-Training ensemble has {len(pool.members)} members")
+    ens_ms = statistics.median(time_ms(lambda: pool.upscale_u8(lr8), windows=5, reps=1))
+    one = lr8[:1]
+    plain1 = statistics.median(time_ms(lambda: bf16.upscale_u8(one), windows=5, reps=1))
+    tta = Upscaler.from_checkpoint(res, "Training", tta=True, device=dev)
+    tta_ens = Upscaler.from_checkpoint(res, "Post-Training", ensemble=True, tta=True,
+                                       device=dev)
+    tta_ms = statistics.median(time_ms(lambda: tta.upscale_u8(one), windows=5, reps=1))
+    te_ms = statistics.median(time_ms(lambda: tta_ens.upscale_u8(one), windows=5, reps=1))
+    for tag, up in (("ensemble", pool), ("tta", tta), ("tta ensemble", tta_ens)):
+        y = up.upscale(one)
+        check(np.isfinite(y).all() and y.shape == (1, 4 * h, 4 * w, 3),
+              f"serve {tag}: output {y.shape}, finite {np.isfinite(y).all()}")
+    print(f"serve ensemble of 3 (bf16): batch {SERVE_BATCH} {ens_ms:.3f} ms "
+          f"({ens_ms / times['bf16 snapshot']:.2f}x the plain forward); batch 1: plain "
+          f"{plain1:.3f} ms, tta {tta_ms:.3f} ms ({tta_ms / plain1:.2f}x), tta + "
+          f"ensemble (24 forwards) {te_ms:.3f} ms ({te_ms / plain1:.2f}x)", flush=True)
+
+    # 4. tiled: one LR 1080x1920 image (→ 4320x7680)
+    th, tw = TILED_LR
+    big = smooth_clips(dev, 1, 12, hw=TILED_LR)[0]
+    sr_s = [0.0]
+    fetch = bf16.upscale_u8
+
+    def timed_fetch(batch):
+        t0 = time.perf_counter()
+        out = fetch(batch)
+        sr_s[0] += time.perf_counter() - t0
+        return out
+
+    bf16.upscale_u8 = timed_fetch
+    bf16.upscale_tiled(big[:300, :300], tile=256, overlap=16, batch_size=16,
+                       fetch_u8=True)  # warm-up at the tile shape
+    sr_s[0] = 0.0
+    events = _ForwardEvents(bf16.model)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tiled = bf16.upscale_tiled(big, tile=256, overlap=16, batch_size=16, fetch_u8=True)
+    wall = time.perf_counter() - t0
+    dev_s = events.seconds()
+    del bf16.upscale_u8
+    stride = 256 - 16
+    n_tiles = math.prod(len(range(0, n - 256 + 1, stride)) + ((n - 256) % stride > 0)
+                        for n in TILED_LR)
+    check(tiled.shape == (4 * th, 4 * tw, 3) and np.isfinite(tiled).all(),
+          f"serve tiled: output {tiled.shape}")
+    print(f"serve tiled bf16: LR {th}x{tw} → {4 * th}x{4 * tw}, tile 256 overlap 16, "
+          f"{n_tiles} tiles in {len(events.pairs)} batches of 16: wall "
+          f"{wall:.3f} s; SR calls (upload, forwards, fetch) {sr_s[0]:.3f} s, of which "
+          f"forwards on the card {dev_s:.3f} s; host blend and padding "
+          f"{wall - sr_s[0]:.3f} s ({(wall - sr_s[0]) / wall:.3f} of wall); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del tiled
+    square = rng.random((256, 256, 3), dtype=np.float32)
+    one_tile = fp32.upscale_tiled(square, tile=256, overlap=16, batch_size=1)
+    err = float(np.abs(one_tile - fp32.upscale(square)).max())
+    check(err <= 1e-6, f"serve tiled: one tile vs upscale max|d| {err:.3e} > 1e-6")
+
+    # 5. upscale-dir as a subprocess: 32 direct, 3 odd sizes, 1 corrupt
+    with tempfile.TemporaryDirectory() as root:
+        src, dst = os.path.join(root, "in"), os.path.join(root, "out")
+        _png_folder(src, smooth_clips(dev, 32, 13, hw=SERVE_LR))
+        from PIL import Image
+
+        sizes = {}
+        for i, hw in enumerate(((90, 140), (150, 210), (260, 300))):
+            name = f"odd_{i}.png"
+            Image.fromarray(smooth_clips(dev, 1, 20 + i, hw=hw)[0]).save(
+                os.path.join(src, name))
+            sizes[name] = hw
+        with open(os.path.join(src, "corrupt.png"), "wb") as f:
+            f.write(b"\x89PNG\r\n\x1a\n not an image")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "srgan_tpu_torch.cli", "upscale-dir", src, dst,
+             "--results-dir", res, "--prefix", "Post-Training", "--ensemble",
+             "--batch-size", "8"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+            text=True, timeout=600,
+        )
+        dir_s = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"serve upscale-dir: exited {proc.returncode}: {proc.stderr[-3000:]}")
+        check("upscaled 35 images" in proc.stdout, f"serve upscale-dir: {proc.stdout}")
+        check("1 direct size bucket(s), 3 odd-size file(s)" in proc.stderr,
+              f"serve upscale-dir: no summary line in {proc.stderr[-2000:]}")
+        written = sorted(os.listdir(dst))
+        check(len(written) == 35 and "corrupt.png" not in written,
+              f"serve upscale-dir: wrote {len(written)} files")
+        for name in written:
+            with Image.open(os.path.join(dst, name)) as im:
+                want = sizes.get(name, SERVE_LR)
+                check(im.size == (4 * want[1], 4 * want[0]),
+                      f"serve upscale-dir: {name} is {im.size}, input {want}")
+        line = DIR_TIMES_RE.search(proc.stderr)
+        print(f"serve upscale-dir --ensemble (pool of 3, bf16) --batch-size 8: 35 files "
+              f"in {dir_s:.1f} s as a subprocess ({35 / dir_s:.2f} img/s, process "
+              f"start and model load included); {line.group(0) if line else '?'}",
+              flush=True)
+
+        # 6. eval through cli.main: the default quirks, then --bucketed on 3 sizes
+        pairs = os.path.join(root, "pairs")
+        _pairs_folder(pairs, smooth_clips(dev, 12, 14))
+        t0 = time.perf_counter()
+        out, _ = _cli(["eval", "-D", pairs, "--results-dir", res])
+        eval_s = time.perf_counter() - t0
+        check(len(out) == 3 and all(math.isfinite(v) for v in out[:2]),
+              f"serve eval: {out}")
+        mixed = os.path.join(root, "mixed")
+        hrs = [smooth_clips(dev, 2, 15 + i, hw=hw)
+               for i, hw in enumerate(((512, 1024), (480, 960), (400, 800)))]
+        _pairs_folder(mixed, [im for pair in hrs for im in pair])
+        t0 = time.perf_counter()
+        out_b, _ = _cli(["eval", "-D", mixed, "--results-dir", res,
+                         "--no-extra-downscale", "--bucketed"])
+        bucket_s = time.perf_counter() - t0
+        check(len(out_b) == 3 and all(math.isfinite(v) for v in out_b[:2]),
+              f"serve eval --bucketed: {out_b}")
+        two = os.path.join(root, "two")
+        _pairs_folder(two, smooth_clips(dev, 2, 14))
+        scores = {d: evaluate_model(two, "LRbicx4", "original", verbose=False,
+                                    upscaler=Upscaler.random_init(seed=0, device=d))
+                  for d in (dev, "cpu")}
+        dpsnr = abs(scores[dev][0] - scores["cpu"][0])
+        check(dpsnr <= 1e-3, f"serve eval: card vs CPU psnr {scores} (|d| {dpsnr} > 1e-3)")
+    print(f"serve eval (bf16 snapshot): 12 pairs LR 128x256 / HR 512x1024, default "
+          f"quirks: psnr {out[0]:.4f}, ssim {out[1]:.4f}, {eval_s / 12 * 1e3:.1f} ms/image "
+          f"(first call included); --no-extra-downscale --bucketed on 6 pairs of 3 "
+          f"sizes: psnr {out_b[0]:.4f}, ssim {out_b[1]:.4f}, "
+          f"{bucket_s / 6 * 1e3:.1f} ms/image; fp32 card vs CPU on 2 pairs: psnr "
+          f"{scores[dev][0]:.6f} vs {scores['cpu'][0]:.6f}", flush=True)
+
+    # 7. bf16 on the card against the CPU. At this size a bf16 forward of
+    # the flagship parts from the fp32 forward of the same weights by
+    # ~0.13·max on either device, so the card is held to the CPU's
+    # own bf16 error e = |CPU − fp32|: |card − fp32| ≤ 1.25 e and
+    # |card − CPU| ≤ √2 e (two independent bf16 errors), in max|d|/max|y|
+    # and in ||d||/||y||; random weights (seed 0) and the snapshot.
+    def rel(a, b):
+        d = a.astype(np.float64) - b
+        return float(np.abs(d).max() / np.abs(b).max()), float(
+            np.linalg.norm(d) / np.linalg.norm(b))
+
+    snap32 = dataclasses.replace(load_model_config(res, "Training"), compute_dtype="float32")
+    bf16_cfg = ModelConfig(compute_dtype="bfloat16")
+    for tag, card, cpu, ref in (
+            ("random", Upscaler.random_init(bf16_cfg, seed=0, device=dev),
+             Upscaler.random_init(bf16_cfg, seed=0, device="cpu"), fp32),
+            ("snapshot", bf16, Upscaler.from_checkpoint(res, "Training", device="cpu"),
+             Upscaler.from_checkpoint(res, "Training", device=dev, model_cfg=snap32))):
+        y_card, y_cpu, y_32 = card.upscale(x), cpu.upscale(x), ref.upscale(x)
+        errs = {"card vs CPU": rel(y_card, y_cpu), "card vs fp32": rel(y_card, y_32),
+                "CPU vs fp32": rel(y_cpu, y_32)}
+        u8 = np.abs((y_card * 255 + 0.5).astype(int) - (y_cpu * 255 + 0.5).astype(int))
+        print(f"serve bf16 {tag}, LR {x.shape}, (max|d|/max|y|, ||d||/||y||): "
+              + "; ".join(f"{k} ({a:.3e}, {b:.3e})" for k, (a, b) in errs.items())
+              + f"; uint8 card vs CPU max {u8.max()} LSB, {(u8 > 1).mean():.2e} beyond "
+              "1 LSB", flush=True)
+        for k, norm in enumerate(("max", "norm")):
+            e = errs["CPU vs fp32"][k]
+            check(errs["card vs fp32"][k] <= 1.25 * e and errs["card vs CPU"][k] <= 2**0.5 * e,
+                  f"serve bf16 {tag} ({norm}): {errs}, beyond the CPU's own bf16 error")
+
+    # 8. no loss kernel and no tower kernel at serve time
+    torch.cuda.synchronize()
+    counts = {**rk.launches, **tk.launches}
+    check(all(v == 0 for v in counts.values()),
+          f"serve: kernels launched at serve time: {counts}")
+    print(f"serve: phase {time.perf_counter() - t_phase:.1f} s; launches {counts}",
+          flush=True)
+    return counts
 
 
 def _tower_params(tk, dev, g, margin: bool):
@@ -1109,6 +1419,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     from srgan_tpu_torch.ops.cuda import recon_loss_kernel as rk
+    from srgan_tpu_torch.ops.cuda import residual_tower_kernel as tk
     from srgan_tpu_torch.ops.cuda.build import SOURCES, build, ptxas_report
     from srgan_tpu_torch.utils.platform import disable_tf32
 
@@ -1135,14 +1446,16 @@ def main() -> int:
     gan_small_step_phase(dev)
     counts = training_phase(rk, dev)
     gan = gan_training_phase(rk, dev)
-    entry = entry_point_phase(rk, dev)
-    tower = tower_phase(dev)
+    with tempfile.TemporaryDirectory() as root:
+        entry, res = entry_point_phase(rk, dev, root)
+        tower = tower_phase(dev)
+        serve = serve_phase(rk, tk, dev, res)
     # K1-K3's launches on each path this script drove, each read just after
     # its run: 3 steps of the flagship (fp32; its counts are "launches"),
     # of the pool of 3 and of the one-generator GAN run, 2 steps of each
-    # counted entry-point leg
+    # counted entry-point leg, and the serving phase (none)
     by_path = {"pixel fp32": counts, **{k: v["counts"] for k, v in gan.items()},
-               **{f"entry point {k}": v for k, v in entry.items()}}
+               **{f"entry point {k}": v for k, v in entry.items()}, "serve": serve}
 
     line = []
     for name, rec in kernels.items():
@@ -1162,6 +1475,9 @@ def main() -> int:
             "tflops": None,
             "cudnn_chain_tflops": None,
         })
+    for rec in tower:  # K4/K5: launched by the tower phase alone
+        name = rec["name"].rsplit("_", 1)[0]
+        rec["launches_by_path"] = {"tower": rec["launches"], "serve": serve[name]}
     line += tower
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,20 @@
 """Command-line entry point of the port: ``python -m srgan_tpu_torch.cli
-train ...``, the counterpart of ``srgan_tpu/cli.py``'s ``train`` with the
-same flags, defaults and ``Config`` mapping, plus ``--device`` (default
-``cuda``; ``cpu`` runs on the CPU), the counterpart of ``JAX_PLATFORMS``.
+{train,eval,upscale,upscale-dir} ...``, the counterpart of
+``srgan_tpu/cli.py`` with the same flags, defaults and ``Config`` mapping,
+plus ``--device`` on every subcommand (default ``cuda``; ``cpu`` runs on
+the CPU), the counterpart of ``JAX_PLATFORMS``.
 
-``--gan`` trains with the discriminator and ``--num-generators N`` trains a
-pool of N generators (the stacked pool's scan executor when N > 1). Flags
-whose feature is not ported reach an error that names its ROADMAP.md item:
-``--perceptual`` in the ``Trainer``; ``--pool-exec vmap``,
-``--profile-dir`` and ``--multihost`` here. The other
-subcommands of the JAX CLI (``eval``, ``upscale``, ``upscale-dir``,
-``train-encoder``) are ROADMAP.md queue 1, items 9 and 11.
+``train``: ``--gan`` trains with the discriminator and ``--num-generators
+N`` trains a pool of N generators (the stacked pool's scan executor when
+N > 1). ``eval`` scores a paired LR/HR set (``eval/evaluation.py``),
+``upscale`` one image (``--tile`` for the tiled path) and ``upscale-dir`` a
+folder (``eval/inference.py``); ``--ensemble``, ``--tta`` and ``--ema``
+select the serving mode. Flags whose feature is not ported reach an error
+that names its ROADMAP.md item: ``--perceptual`` in the ``Trainer`` and
+``--perceptual-metric`` in ``evaluate_model`` (item 8); ``--pool-exec
+vmap`` (item 7), ``--profile-dir`` (item 11), ``--multihost`` and ``--dp``
+(item 10) here. The JAX CLI's ``train-encoder`` subcommand is not ported
+(items 8 and 11).
 """
 
 from __future__ import annotations
@@ -136,6 +141,83 @@ def _add_train(sub):
                    help="torch device to train on ('cpu' runs on the CPU)")
 
 
+_SERVE_MODES = (
+    ("--ensemble", "serve the member-MEAN SR of every pool generator in the "
+                   "checkpoint (the reference serves only member 0)"),
+    ("--tta", "geometric self-ensemble (x8 dihedral test-time augmentation); "
+              "composes with --ensemble"),
+    ("--ema", "serve the EMA weights saved by an --ema-decay training run"),
+)
+_DP_HELP = ("shard inference batches over every visible device (not ported "
+            "yet: ROADMAP.md queue 1, item 10)")
+_DEVICE_HELP = "torch device to run on ('cpu' runs on the CPU)"
+
+
+def _add_serve_modes(p):
+    for flag, help_ in _SERVE_MODES:
+        p.add_argument(flag, action="store_true", help=help_)
+
+
+def _add_eval(sub):
+    p = sub.add_parser("eval", help="batch evaluation on a paired LR/HR set")
+    p.add_argument("-D", "--data_dir", default="data")
+    p.add_argument("-lr", "--lr_dir", default="LRbicx4")
+    p.add_argument("-hr", "--hr_dir", default="original")
+    p.add_argument("--no-extra-downscale", action="store_true")
+    p.add_argument("--no-enhance", action="store_true")
+    p.add_argument("--bucketed", action="store_true",
+                   help="pad to the set's max size + masked metrics: one "
+                        "input shape for size-diverse sets")
+    p.add_argument("--results-dir", default="results")
+    p.add_argument("--prefix", default="Training")
+    p.add_argument("--torch-checkpoint", default=None,
+                   help="evaluate a reference PyTorch .pth generator "
+                        "directly (BatchNorm folded on load)")
+    _add_serve_modes(p)
+    p.add_argument("--perceptual-metric", default=None, metavar="NPZ",
+                   help="encoder perceptual distance (not ported yet: "
+                        "ROADMAP.md queue 1, item 8)")
+    p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+
+
+def _add_upscale(sub):
+    p = sub.add_parser("upscale", help="super-resolve one image file")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--results-dir", default="results")
+    p.add_argument("--prefix", default="Training")
+    p.add_argument("--enhance", action="store_true")
+    _add_serve_modes(p)
+    p.add_argument("--tile", type=int, default=0,
+                   help="tile size (LR px) for tiled inference: one input "
+                        "shape for ANY image size, device memory bounded by "
+                        "--tile-batch tiles. 0 = direct whole-image path")
+    p.add_argument("--tile-overlap", type=int, default=16,
+                   help="feather-blended tile margin (LR px)")
+    p.add_argument("--tile-batch", type=int, default=16,
+                   help="tiles per device batch in tiled mode")
+    p.add_argument("--dp", action="store_true", help=_DP_HELP)
+    p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+
+
+def _add_upscale_dir(sub):
+    p = sub.add_parser(
+        "upscale-dir",
+        help="super-resolve every image in a folder (batch serving path)",
+    )
+    p.add_argument("input_dir")
+    p.add_argument("output_dir")
+    p.add_argument("--results-dir", default="results")
+    p.add_argument("--prefix", default="Training")
+    p.add_argument("--enhance", action="store_true")
+    _add_serve_modes(p)
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="images per device batch (same-size images batch "
+                        "together; sizes are bucketed automatically)")
+    p.add_argument("--dp", action="store_true", help=_DP_HELP)
+    p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+
+
 def config_from_args(args):
     """The ``Config`` the JAX CLI builds from the same flags."""
     from srgan_tpu_torch.config import (
@@ -206,12 +288,89 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("srgan_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_train(sub)
+    _add_eval(sub)
+    _add_upscale(sub)
+    _add_upscale_dir(sub)
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    # args.cmd == "train", the one subcommand
+    if args.cmd == "train":
+        return _train(args)
+    if getattr(args, "dp", False):
+        raise NotImplementedError(
+            "--dp: data-parallel serving is not ported yet (ROADMAP.md, "
+            "queue 1, item 10: parallelism)"
+        )
+    if args.cmd == "eval":
+        from srgan_tpu_torch.eval.evaluation import evaluate_model
+
+        return evaluate_model(
+            dataset=args.data_dir,
+            lr_path=args.lr_dir,
+            hr_path=args.hr_dir,
+            results_dir=args.results_dir,
+            prefix=args.prefix,
+            torch_checkpoint=args.torch_checkpoint,
+            extra_downscale=not args.no_extra_downscale,
+            apply_enhance=not args.no_enhance,
+            bucketed=args.bucketed,
+            ensemble=args.ensemble,
+            tta=args.tta,
+            ema=args.ema,
+            perceptual_metric=args.perceptual_metric,
+            device=args.device,
+        )
+    if args.cmd == "upscale":
+        from srgan_tpu_torch.eval.inference import Upscaler
+        from srgan_tpu_torch.training.checkpoint import latest_ckpt_dir
+
+        if latest_ckpt_dir(args.results_dir, args.prefix) is not None:
+            up = Upscaler.from_checkpoint(
+                args.results_dir, args.prefix, enhance_output=args.enhance,
+                ensemble=args.ensemble, tta=args.tta, ema=args.ema,
+                device=args.device,
+            )
+        else:
+            print("warning: no checkpoint found, using random weights",
+                  file=sys.stderr)
+            up = Upscaler.random_init(enhance_output=args.enhance,
+                                      device=args.device)
+        if args.tile:
+            from srgan_tpu_torch.utils.image_io import load_image, save_image
+
+            sr = up.upscale_tiled(
+                load_image(args.input),
+                tile=args.tile,
+                overlap=args.tile_overlap,
+                batch_size=args.tile_batch,
+            )
+            save_image(sr, args.output)
+        else:
+            up.upscale_file(args.input, args.output)
+        print(f"saved {args.output}")
+        return None
+    # args.cmd == "upscale-dir"
+    from srgan_tpu_torch.eval.inference import upscale_directory
+
+    n = upscale_directory(
+        args.input_dir,
+        args.output_dir,
+        results_dir=args.results_dir,
+        prefix=args.prefix,
+        enhance_output=args.enhance,
+        batch_size=args.batch_size,
+        ensemble=args.ensemble,
+        tta=args.tta,
+        ema=args.ema,
+        device=args.device,
+    )
+    print(f"upscaled {n} images into {args.output_dir}")
+    return n
+
+
+def _train(args):
     if args.profile_dir:
         raise NotImplementedError(
             "--profile-dir: tracing is not ported yet (ROADMAP.md, queue 1, "

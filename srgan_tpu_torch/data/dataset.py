@@ -7,7 +7,8 @@ device (``ops.resize``). PIL is imported only when an image is decoded, so
 the module imports where PIL is missing. A dataset is anything with
 ``hr_size``, ``__len__`` and ``load_u8(idx)`` (HWC uint8, or None for a
 corrupt file): ``ImageFolderDataset`` reads a folder, ``ArrayDataset``
-serves clips already in memory.
+serves clips already in memory. ``PairedImageDataset`` pairs two folders
+(LR and HR) for evaluation.
 """
 
 from __future__ import annotations
@@ -24,6 +25,17 @@ def list_image_files(folder: str) -> List[str]:
     return sorted(
         f for f in os.listdir(folder) if f.endswith(IMAGE_EXTENSIONS)
     )
+
+
+def load_image_rgb(path: str) -> Optional[np.ndarray]:
+    """Decode an image to HWC uint8 RGB; None on corrupt/unreadable files."""
+    from PIL import Image, UnidentifiedImageError
+
+    try:
+        with Image.open(path) as img:
+            return np.asarray(img.convert("RGB"))
+    except (UnidentifiedImageError, OSError):
+        return None
 
 
 def load_hr_clip_u8(path: str, hr_size: Tuple[int, int]) -> Optional[np.ndarray]:
@@ -79,6 +91,33 @@ class ArrayDataset:
 
     def load_u8(self, idx: int) -> np.ndarray:
         return self.clips[idx]
+
+
+class PairedImageDataset:
+    """Two parallel folders of already-paired LR/HR images for evaluation
+    (reference ``ImageDataset``, ``src/utils.py:50-90``): equal counts
+    asserted; a pair with a corrupt file is None."""
+
+    def __init__(self, folder_path: str, path1: str, path2: str):
+        self.dir1 = os.path.join(folder_path, path1)
+        self.dir2 = os.path.join(folder_path, path2)
+        self.files1 = list_image_files(self.dir1)
+        self.files2 = list_image_files(self.dir2)
+        assert len(self.files1) == len(self.files2), (
+            "the sizes have to be the same!!!"  # ``src/utils.py:66``
+        )
+
+    def __len__(self) -> int:
+        return len(self.files1)
+
+    def __getitem__(self, idx: int):
+        """(img1, img2) as HWC float32 in [0, 1], or None if either image
+        is corrupt."""
+        a = load_image_rgb(os.path.join(self.dir1, self.files1[idx]))
+        b = load_image_rgb(os.path.join(self.dir2, self.files2[idx]))
+        if a is None or b is None:
+            return None
+        return a.astype(np.float32) / 255.0, b.astype(np.float32) / 255.0
 
 
 def split_indices(

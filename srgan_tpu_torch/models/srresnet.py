@@ -144,6 +144,8 @@ class SRResNet(nn.Module):
             )
         cd = self.compute_dtype = _dtype(compute_dtype)
         nf, c = num_features, in_channels
+        self.upscale_factor = f
+        self.norm = norm
         self.head = head
         self.remat = remat
         self.num_stages = int(math.log2(f))

@@ -7,6 +7,8 @@
     correct channel axis: per channel a 3x3 uniform filter (valid, i.e.
     skimage's interior crop), sample covariance (N/(N-1)), K1=0.01,
     K2=0.03, mean of the map, averaged over channels.
+  - ``psnr_masked`` / ``ssim_masked``: the same over the top-left valid
+    region of padded images (the size-bucketed eval path).
 """
 
 from __future__ import annotations
@@ -44,6 +46,41 @@ def _ssim_map(x: torch.Tensor, y: torch.Tensor, data_range: float):
 def ssim(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0):
     """SSIM of a single HWC image pair (win_size=3, channel-averaged)."""
     return batched_psnr_ssim(img1[None], img2[None], data_range)[1][0]
+
+
+def _valid_mask(n: int, valid, device) -> torch.Tensor:
+    return torch.arange(n, device=device) < torch.as_tensor(valid, device=device)
+
+
+def psnr_masked(img1: torch.Tensor, img2: torch.Tensor, valid_h, valid_w,
+                data_range: float = 1.0):
+    """PSNR over the top-left ``valid_h x valid_w`` region of padded HWC
+    images (``valid_*``: Python ints or 0-dim tensors). With the full region
+    valid this equals :func:`psnr`."""
+    a, b = img1.float(), img2.float()
+    h, w, c = a.shape
+    mask = (_valid_mask(h, valid_h, a.device)[:, None]
+            & _valid_mask(w, valid_w, a.device)[None, :])[..., None]
+    sq = torch.where(mask, (a - b) ** 2, 0.0)
+    mse = sq.sum() / (mask.sum() * c)
+    return 10.0 * torch.log10((data_range**2) / mse)
+
+
+def ssim_masked(img1: torch.Tensor, img2: torch.Tensor, valid_h, valid_w,
+                data_range: float = 1.0):
+    """SSIM (win_size=3, skimage semantics) over only the 3x3 windows that
+    lie fully inside the valid region of padded HWC images. With the full
+    region valid this equals :func:`ssim` (every valid-conv window is
+    kept, skimage's interior crop)."""
+    a = img1.float().permute(2, 0, 1)[None]
+    b = img2.float().permute(2, 0, 1)[None]
+    _, _, h, w = a.shape
+    # map index (i, j) covers pixels [i, i+2] x [j, j+2]
+    map_mask = (_valid_mask(h - 2, torch.as_tensor(valid_h) - 2, a.device)[:, None]
+                & _valid_mask(w - 2, torch.as_tensor(valid_w) - 2, a.device)[None, :])
+    smap = _ssim_map(a, b, data_range)[0]  # (C, H-2, W-2)
+    per_channel = torch.where(map_mask, smap, 0.0).sum((1, 2)) / map_mask.sum()
+    return per_channel.mean()
 
 
 def batched_psnr_ssim(batch1: torch.Tensor, batch2: torch.Tensor,

@@ -22,7 +22,13 @@ import numpy as np
 import torch
 
 
-@functools.lru_cache(maxsize=None)
+# Distinct (in, out) pairs kept. Training uses one size; an eval over a
+# size-diverse set would otherwise keep every pair's matrix (on the card,
+# for the device cache) for the life of the process.
+WEIGHT_CACHE_SIZE = 64
+
+
+@functools.lru_cache(maxsize=WEIGHT_CACHE_SIZE)
 def _triangle_weights_np(in_size: int, out_size: int) -> np.ndarray:
     """(in_size, out_size) float32 weights of jax's ``compute_weight_mat``
     for the antialiased triangle kernel (scale out/in, no translation)."""
@@ -44,7 +50,7 @@ def _triangle_weights_np(in_size: int, out_size: int) -> np.ndarray:
     return w
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=WEIGHT_CACHE_SIZE)
 def _triangle_weights(in_size: int, out_size: int, device: torch.device):
     # cached per device: a per-step host→device copy would stall the queue
     return torch.from_numpy(_triangle_weights_np(in_size, out_size).copy()).to(device)

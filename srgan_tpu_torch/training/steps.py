@@ -1,6 +1,8 @@
 """Train, eval and infer steps, the counterpart of
 ``srgan_tpu/training/steps.py``: the pixel step, the GAN steps (generator,
-discriminator, and the two fused) and the eval and infer steps.
+discriminator, and the two fused), the eval step and the serving steps:
+the plain forward, the pool ensemble (the member mean), the x8 dihedral
+self-ensemble (TTA) and their twins that quantise to uint8 on the device.
 
 A step runs eagerly: forward, the reconstruction loss (kernels K1 + K2 on
 the card), backward (K3 for the loss, cuDNN for the convs) and the Adam
@@ -18,11 +20,13 @@ nothing.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
+from srgan_tpu_torch.ops.filters import sharpen
 from srgan_tpu_torch.ops.gan_loss import discriminator_loss, generator_adversarial_loss
 from srgan_tpu_torch.ops.metrics import batched_psnr_ssim
 from srgan_tpu_torch.ops.recon_loss import reconstruction_loss
@@ -204,3 +208,100 @@ def infer_step(model: nn.Module, lr_imgs: torch.Tensor) -> torch.Tensor:
     """Plain SR forward for validation grids / inference."""
     model.eval()
     return model(lr_imgs)
+
+
+def _member_fns(members, params=None) -> list:
+    """Each pool member's forward: ``members`` is a sequence of modules, or
+    one module whose ``params`` is a sequence of ``state_dict``s (on the
+    input's device), called through ``torch.func.functional_call``."""
+    if params is None:
+        return [m.eval() for m in members]
+    members.eval()
+    return [functools.partial(torch.func.functional_call, members, p)
+            for p in params]
+
+
+def _ensemble_fwd(members, params=None):
+    fns = _member_fns(members, params)
+    return lambda x: torch.stack([f(x) for f in fns]).mean(0)
+
+
+@torch.no_grad()
+def infer_step_ensemble(members, lr_imgs: torch.Tensor,
+                        params: Sequence[dict] | None = None) -> torch.Tensor:
+    """Pool-ensemble SR forward: the mean of every member's output
+    (``srgan_tpu/training/steps.py:313``). The reference serves only member
+    0 (``src/evaluation.py:22-31``); the mean puts the pool's other members
+    to work at inference."""
+    return _ensemble_fwd(members, params)(lr_imgs)
+
+
+def _dihedral_mean(fwd, lr_imgs: torch.Tensor) -> torch.Tensor:
+    """Mean of ``fwd`` over the 8 dihedral transforms of the NHWC input,
+    each output mapped back through the inverse transform (x8 geometric
+    self-ensemble), in JAX's order: transpose, then H flip, then W flip.
+    The transposed four run at (W, H)."""
+    outs = []
+    for t in range(2):
+        xt = lr_imgs.transpose(1, 2) if t else lr_imgs
+        for fh in range(2):
+            for fw in range(2):
+                xx = xt
+                if fh:
+                    xx = xx.flip(1)
+                if fw:
+                    xx = xx.flip(2)
+                y = fwd(xx)
+                if fw:
+                    y = y.flip(2)
+                if fh:
+                    y = y.flip(1)
+                if t:
+                    y = y.transpose(1, 2)
+                outs.append(y)
+    return torch.stack(outs).mean(0)
+
+
+@torch.no_grad()
+def infer_step_tta(model, lr_imgs: torch.Tensor, ensemble: bool = False,
+                   params: Sequence[dict] | None = None) -> torch.Tensor:
+    """x8 dihedral TTA forward; ``ensemble=True``: each of the 8 forwards is
+    the member mean (``model`` and ``params`` as in
+    :func:`infer_step_ensemble`), 8N forwards in all."""
+    fwd = _ensemble_fwd(model, params) if ensemble else model.eval()
+    return _dihedral_mean(fwd, lr_imgs)
+
+
+def quantize_u8(sr: torch.Tensor) -> torch.Tensor:
+    """SR → uint8 on its device: clip to [0, 1], x255 + 0.5, floor (the
+    formula of ``utils.image_io.array_to_image``, bit for bit)."""
+    return torch.floor(sr.float().clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+def _u8(sr: torch.Tensor, enhance_out: bool) -> torch.Tensor:
+    return quantize_u8(sharpen(sr) if enhance_out else sr)
+
+
+@torch.no_grad()
+def infer_step_u8(model: nn.Module, lr_imgs: torch.Tensor,
+                  enhance_out: bool = False) -> torch.Tensor:
+    """SR forward quantised to uint8 on the device, optionally through the
+    sharpen epilogue first: the serving path fetches a quarter of the
+    float bytes."""
+    return _u8(infer_step(model, lr_imgs), enhance_out)
+
+
+@torch.no_grad()
+def infer_step_ensemble_u8(members, lr_imgs: torch.Tensor,
+                           enhance_out: bool = False,
+                           params: Sequence[dict] | None = None) -> torch.Tensor:
+    """The uint8 twin of :func:`infer_step_ensemble`."""
+    return _u8(infer_step_ensemble(members, lr_imgs, params), enhance_out)
+
+
+@torch.no_grad()
+def infer_step_tta_u8(model, lr_imgs: torch.Tensor, enhance_out: bool = False,
+                      ensemble: bool = False,
+                      params: Sequence[dict] | None = None) -> torch.Tensor:
+    """The uint8 twin of :func:`infer_step_tta`."""
+    return _u8(infer_step_tta(model, lr_imgs, ensemble, params), enhance_out)

@@ -254,7 +254,7 @@ class TestImports:
             "    srgan_tpu_torch.__path__, 'srgan_tpu_torch.')]\n"
             "for n in names:\n"
             "    importlib.import_module(n)\n"
-            "print(len(names))\n"
+            "print(' '.join(names))\n"
         )
         env = dict(os.environ, PYTHONPATH=str(REPO))
         out = subprocess.run(
@@ -262,7 +262,11 @@ class TestImports:
             capture_output=True, text=True, timeout=120,
         )
         assert out.returncode == 0, out.stderr
-        assert int(out.stdout.strip()) >= 21
+        names = set(out.stdout.split())
+        assert len(names) >= 37
+        assert {"srgan_tpu_torch.eval.inference", "srgan_tpu_torch.eval.evaluation",
+                "srgan_tpu_torch.models.enhancer",
+                "srgan_tpu_torch.utils.torch_port"} <= names
 
     def test_no_import_lines_of_jax(self):
         files = sorted((REPO / "srgan_tpu_torch").rglob("*.py"))
