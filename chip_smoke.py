@@ -99,6 +99,25 @@ Phases, each of which must pass (any failure exits non-zero):
      counts are zeroed before the phase and read after: K1-K5 must not
      have launched.
 
+  10. the perceptual prior (run between phases 7 and 8, on phase 7's
+     folders): the card against the CPU at a small size in fp32 (the VGG19
+     features at conv3_3 and conv4_3 and the encoder's taps within
+     1e-4·max|y|; one perceptual pixel step and one perceptual fused GAN
+     step: losses, p_loss included, rel 1e-4, moments as in 3), the
+     random-VGG warning checked and printed where no pretrained VGG19 is
+     cached; ``python3 -m srgan_tpu_torch.cli train-encoder`` as a
+     subprocess on 48 PNG clips at the JAX CLI's defaults, 200 steps;
+     ``train --perceptual 0.1 --perceptual-encoder`` as a subprocess in
+     fp32 (one epoch of 2 steps); ``eval --perceptual-metric`` on 12 pairs
+     of that snapshot, card against CPU (PSNR within 1e-3 dB, the distance
+     within rel 1e-4); then ``Trainer.train_epoch`` at the flagship size,
+     batch 12, weight 0.1: VGG19 in fp32 and bf16 and the trained encoder
+     in fp32 and bf16 (a warm-up and a counted epoch of 3 steps; the VGG
+     runs with a profiled epoch and the extractor's passes timed alone on
+     the device), and the pool of 3 with GAN and VGG in bf16 (2 steps):
+     ms/step, img/s, peak memory, K1-K3 once a step and member, the
+     extractor on HR once a batch and on SR once a member.
+
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. It exits non-zero without a result where CUDA is unavailable or the
 package is missing. The script imports nothing of JAX or ``srgan_tpu``.
@@ -537,10 +556,12 @@ class Flagship:
     """One flagship Trainer (F=64, 16 blocks, 4x subpixel head, HR
     512x1024) on clips in the device cache, with a temporary results dir.
     ``n_gen`` generators; ``gan``: with the flagship discriminator (4
-    stages, 64 filters) and ``p_gan_above=1.0``."""
+    stages, 64 filters) and ``p_gan_above=1.0``; ``steps`` an epoch;
+    ``train``: more ``TrainConfig`` fields (the perceptual term's)."""
 
     def __init__(self, dev, compute_dtype: str, batch: int, clips, results_dir: str,
-                 layout: str = "default", n_gen: int = 1, gan: bool = False):
+                 layout: str = "default", n_gen: int = 1, gan: bool = False,
+                 steps: int = FLAGSHIP_STEPS, train: dict | None = None, tag: str = ""):
         from srgan_tpu_torch.config import (Config, DataConfig, DiscriminatorConfig,
                                             ModelConfig, PoolConfig, TrainConfig)
         from srgan_tpu_torch.data.dataset import ArrayDataset
@@ -549,8 +570,9 @@ class Flagship:
 
         self.tag = f"{compute_dtype} batch {batch}" + (
             " channels_last" if layout == "channels_last" else "") + (
-            f" pool {n_gen}" if n_gen > 1 else "") + (" gan" if gan else "")
+            f" pool {n_gen}" if n_gen > 1 else "") + (" gan" if gan else "") + tag
         self.batch = batch
+        self.steps = steps
         self.per_step = n_gen  # K1-K3 launches a step: once a member
         cfg = Config(
             model=ModelConfig(compute_dtype=compute_dtype),
@@ -558,12 +580,12 @@ class Flagship:
             data=DataConfig(batch_size=batch, device_cache="on"),
             pool=PoolConfig(num_generators=n_gen, **({"p_gan_above": 1.0} if gan else {})),
             train=TrainConfig(progress="off", score_max_batches=1,
-                              results_dir=results_dir, use_gan=gan),
+                              results_dir=results_dir, use_gan=gan, **(train or {})),
         )
         self.trainer = Trainer(cfg)  # the card, by default
         if layout == "channels_last":
             channels_last(self.trainer)
-        self.pipe = TrainPipeline(cfg.data, ArrayDataset(clips[:FLAGSHIP_STEPS * batch]),
+        self.pipe = TrainPipeline(cfg.data, ArrayDataset(clips[:steps * batch]),
                                   use_split=False, seed=cfg.train.seed)
         t0 = time.perf_counter()
         self.warm = self.trainer.train_epoch(self.pipe, 0)  # cuDNN set-up, upload
@@ -578,8 +600,8 @@ class Flagship:
         torch.cuda.synchronize()
         self.epochs += 1
         dt = time.perf_counter() - t0
-        check(m["n_batches"] == FLAGSHIP_STEPS,
-              f"{self.tag}: expected {FLAGSHIP_STEPS} steps, ran {m['n_batches']}")
+        check(m["n_batches"] == self.steps,
+              f"{self.tag}: expected {self.steps} steps, ran {m['n_batches']}")
         for k in ("g_loss", "com_loss", "tv_loss"):
             check(math.isfinite(m[k]) and math.isfinite(self.warm[k]),
                   f"{self.tag}: {k} not finite")
@@ -594,7 +616,7 @@ class Flagship:
         """The main path's counted epoch: launch counts zeroed just before
         and read just after; K1, K2 and K3 once per step and member, vector
         path."""
-        want = FLAGSHIP_STEPS * self.per_step
+        want = self.steps * self.per_step
         before = self.snapshot()
         torch.cuda.reset_peak_memory_stats()
         rk.reset_launches()
@@ -604,10 +626,10 @@ class Flagship:
         for name in LOSS_KERNELS:
             check(counts[name] == want,
                   f"{self.tag}: {name} launched {counts[name]} times in "
-                  f"{FLAGSHIP_STEPS} steps, expected {want}")
+                  f"{self.steps} steps, expected {want}")
             check(paths[f"{name}_vec"] == want and paths[f"{name}_scalar"] == 0,
                   f"{self.tag}: {name}: paths {paths}, expected the vector path every step")
-        step_ms = dt / FLAGSHIP_STEPS * 1e3
+        step_ms = dt / self.steps * 1e3
         gan = ""
         if self.trainer.d_state is not None:
             after = self.snapshot()
@@ -620,11 +642,12 @@ class Flagship:
                    f"totals {[(a['gan_updates'], a['pixel_updates']) for a in after]}); "
                    f"d_loss {m['d_loss']:.5f} g_d_loss {m['g_d_loss']:.5f}")
         print(f"train {self.tag}: warm-up epoch {self.warm_s:.3f} s; counted epoch "
-              f"{FLAGSHIP_STEPS} steps {step_ms:.2f} ms/step "
-              f"{self.batch * FLAGSHIP_STEPS / dt:.2f} img/s; g_loss "
+              f"{self.steps} steps {step_ms:.2f} ms/step "
+              f"{self.batch * self.steps / dt:.2f} img/s; g_loss "
               f"{self.warm['g_loss']:.5f} -> {m['g_loss']:.5f}; peak memory "
               f"{peak / 2**30:.2f} GiB; launches {counts}; paths {paths}{gan}", flush=True)
-        return {"counts": counts, "step_ms": step_ms, "peak_gib": peak / 2**30}
+        return {"counts": counts, "step_ms": step_ms, "peak_gib": peak / 2**30,
+                "p_loss": m["p_loss"]}
 
     def close(self):
         self.pipe.close()
@@ -724,10 +747,11 @@ def gan_training_phase(rk, dev) -> dict:
     return out
 
 
-def profile_epoch(trainer, pipe, steps: int, tag: str) -> None:
+def profile_epoch(trainer, pipe, steps: int, tag: str) -> tuple:
     """Where the time goes: one more epoch under torch.profiler. Device
     time by kernel, the loss kernels' share and the device's idle share
-    (1 − busy/wall; the profiler's own host cost inflates wall)."""
+    (1 − busy/wall; the profiler's own host cost inflates wall). Returns
+    the device's busy ms a step and its ms a step by group."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.train_epoch(pipe, 2)
@@ -752,6 +776,7 @@ def profile_epoch(trainer, pipe, steps: int, tag: str) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     for name, us in top[:12]:
         print(f"profile {tag}:   {us / 1e3 / steps:9.3f} ms/step  {name[:100]}")
+    return busy / 1e3 / steps, {g: us / 1e3 / steps for g, us in groups.items()}
 
 
 def _cli(argv):
@@ -880,6 +905,283 @@ def entry_point_phase(rk, dev, root: str):
           f"{counted}; latest {os.path.basename(latest)}, best {os.path.basename(best)}, "
           f"gan pool {os.path.basename(post)}; artifacts {names}", flush=True)
     return counted, res
+
+
+P_WEIGHT = 0.1  # the flagship perceptual runs' --perceptual weight
+POOL_P_STEPS = 2  # counted steps of the perceptual pool run
+RANDOM_VGG = "no pretrained VGG19 weights found"  # the fallback's warning
+
+
+def _feature_errs(got: dict, want: dict) -> dict:
+    """max|Δ|/max|y| of each tap, got on the card, want on the CPU."""
+    check(list(got) == list(want), f"taps {list(got)} != {list(want)}")
+    return {k: float((got[k].cpu() - want[k]).abs().max() / want[k].abs().max())
+            for k in want}
+
+
+def perceptual_small_phase(dev) -> None:
+    """The card against the CPU at a small size, fp32, TF32 off, from the
+    same weights and inputs: the VGG19 features at the default taps
+    (conv3_3, conv4_3) and the encoder's taps (features 32, 64, 128) on x
+    (2, 64, 128, 3), each within 1e-4·max|y|; one perceptual pixel step and
+    one perceptual fused GAN step (F=8, 2 blocks, HR 64x128, D of 2 stages
+    at 8 filters, VGG at the default taps, weight 1.0): the losses, p_loss
+    included, rel 1e-4, the adversarial ones ``ADV_ATOL``, every network's
+    moments ``GRAD_RTOL``. Without a cached pretrained VGG19, VGG runs on
+    random weights: its warning is checked and printed."""
+    import warnings
+
+    from srgan_tpu_torch.config import DiscriminatorConfig, ModelConfig
+    from srgan_tpu_torch.models.discriminator import init_discriminator
+    from srgan_tpu_torch.models.encoder import init_encoder
+    from srgan_tpu_torch.models.srresnet import init_generator
+    from srgan_tpu_torch.models.vgg import _find_cached_torch_vgg19, frozen, init_vgg_extractor
+    from srgan_tpu_torch.training.steps import gan_train_step, generator_pixel_step
+    from srgan_tpu_torch.training.train_state import TrainState
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        vgg = {d: init_vgg_extractor(seed=0, device=d) for d in (dev, cpu)}
+    random_w = [w for w in caught if RANDOM_VGG in str(w.message)]
+    cached = _find_cached_torch_vgg19()
+    if cached is None:
+        check(len(random_w) == 2 and random_w[0].category is RuntimeWarning,
+              f"perceptual: {len(random_w)} random-VGG warnings, expected 2")
+        print(f"perceptual: no pretrained VGG19 on this machine; the extractor warned "
+              f"(RuntimeWarning): {random_w[0].message}", flush=True)
+    else:
+        check(not random_w, "perceptual: the random-VGG warning with a cached .pth")
+        print(f"perceptual: VGG19 weights from {cached}", flush=True)
+    enc = {d: frozen(init_encoder(seed=0, device=d)) for d in (dev, cpu)}
+    rng = np.random.default_rng(3)
+    x = rng.random((2, 64, 128, 3), dtype=np.float32)
+    for name, ext in (("vgg19", vgg), ("encoder", enc)):
+        with torch.no_grad():
+            errs = _feature_errs(ext[dev](torch.from_numpy(x).to(dev)),
+                                 ext[cpu](torch.from_numpy(x)))
+        check(max(errs.values()) <= 1e-4, f"perceptual {name}: card vs CPU {errs} > 1e-4")
+        print(f"perceptual {name} taps, card vs CPU, x {x.shape}: max|dy|/max|y| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (bar 1e-4)",
+              flush=True)
+
+    hr = rng.random((2, 64, 128, 3), dtype=np.float32)
+    lr_imgs = rng.random((2, 16, 32, 3), dtype=np.float32)
+    g_cfg = ModelConfig(num_features=8, num_residuals=2, upscale_factor=4)
+    d_cfg = DiscriminatorConfig(num_filters=8, num_stages=2)
+    out = []
+    for d in (dev, cpu):
+        t = lambda a: torch.from_numpy(a).to(d)  # noqa: E731
+        g1 = TrainState(init_generator(g_cfg, seed=0, device=d))
+        g1, m1 = generator_pixel_step(g1, t(hr), t(lr_imgs), 1e-3, vgg[d], 1.0)
+        g2 = TrainState(init_generator(g_cfg, seed=0, device=d))
+        d2 = TrainState(init_discriminator(d_cfg, seed=1, device=d))
+        g2, d2, m2 = gan_train_step(g2, d2, t(hr), t(lr_imgs), 1e-3, 1e-3, vgg[d], 1.0)
+        out.append(([m1["packed"].cpu(), m2["packed"].cpu()], [g1, g2, d2]))
+    (pk_gpu, st_gpu), (pk_cpu, st_cpu) = out
+    rel_err = adv_err = 0.0
+    for a, b in zip(pk_gpu, pk_cpu):  # g, com, tv, p relative; g_d, d_loss absolute
+        rel = [0, 1, 2, 4]
+        adv = [i for i in range(a.numel()) if i not in rel]
+        rel_err = max([rel_err, *((a - b).abs() / b.abs().clamp_min(1e-12))[rel].tolist()])
+        adv_err = max([adv_err, *(a - b).abs()[adv].tolist()])
+    check(all(float(p[4]) > 0 for p in pk_gpu), f"perceptual steps: p_loss {pk_gpu}")
+    check(rel_err <= 1e-4, f"perceptual steps: losses rel err {rel_err} > 1e-4")
+    check(adv_err <= ADV_ATOL["float32"], f"perceptual steps: adversarial abs err {adv_err}")
+    g_err = moments_rel_err(st_gpu, st_cpu)
+    check(g_err <= GRAD_RTOL["float32"], f"perceptual steps: moments rel err {g_err}")
+    print(f"perceptual small steps fp32 (pixel, fused GAN), card vs CPU: losses rel err "
+          f"{rel_err:.3e} (bar 1e-4; p_loss card {float(pk_gpu[0][4]):.6f} / "
+          f"{float(pk_gpu[1][4]):.6f}), adversarial abs err {adv_err:.3e}, G and D "
+          f"moments rel err {g_err:.3e} (bar {GRAD_RTOL['float32']}); phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _count_extractor_calls(extractor) -> dict:
+    """Counts the extractor's forwards without a graph (HR) and with one (SR)."""
+    calls = {"hr": 0, "sr": 0}
+
+    def hook(module, args):
+        calls["sr" if torch.is_grad_enabled() else "hr"] += 1
+
+    extractor.register_forward_pre_hook(hook)
+    return calls
+
+
+def extractor_device_ms(extractor, dev, batch: int, reps: int = 2) -> dict:
+    """The extractor's passes alone at the flagship shape, under the
+    profiler: device ms of the HR forward without a graph, and of the SR
+    forward with the SR input gradient (what a step adds per generator),
+    each with the convs' share."""
+    from srgan_tpu_torch.training.steps import perceptual_term, real_features
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    hr = torch.rand((batch, *LOSS_SHAPE[1:]), generator=g, device=dev)
+    sr = (hr + 0.05 * torch.randn(hr.shape, generator=g, device=dev)).requires_grad_()
+    f_real = real_features(extractor, hr)
+    passes = {
+        "hr": lambda: real_features(extractor, hr),
+        "sr": lambda: torch.autograd.grad(perceptual_term(sr, f_real, extractor), sr),
+    }
+    conv_rx = dict(PROFILE_GROUPS)["conv"]
+    out = {}
+    for name, fn in passes.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        total = sum(e.time_range.elapsed_us() for e in events)
+        conv = sum(e.time_range.elapsed_us() for e in events if conv_rx.search(e.name))
+        out[name] = (total / reps / 1e3, conv / max(total, 1e-9))
+    return out
+
+
+def perceptual_training_phase(rk, dev, enc_path: str) -> dict:
+    """The perceptual term at the flagship size through
+    ``Trainer.train_epoch``, ``perceptual_weight`` 0.1, batch 12, each run a
+    warm-up epoch and a counted one (launch and extractor-call counts zeroed
+    just before it): VGG19 at conv3_3 and conv4_3 in fp32 and bf16 (3 steps;
+    a profiled epoch each, beside the extractor's passes timed alone on the
+    device), the trained encoder prior of ``enc_path`` in fp32 and bf16 (3
+    steps), and the pool of 3 with GAN and VGG in bf16 (2 steps). K1-K3 once
+    a step and member; the extractor on HR once a batch, on SR once a
+    member. Returns each run's launch counts."""
+    import warnings
+
+    clips = smooth_clips(dev, FLAGSHIP_STEPS * 12, 1)
+    runs = (("vgg19", "float32", 1, False, {}, FLAGSHIP_STEPS),
+            ("vgg19", "bfloat16", 1, False, {}, FLAGSHIP_STEPS),
+            ("encoder", "float32", 1, False, {"perceptual_encoder_npz": enc_path},
+             FLAGSHIP_STEPS),
+            ("encoder", "bfloat16", 1, False, {"perceptual_encoder_npz": enc_path},
+             FLAGSHIP_STEPS),
+            ("vgg19", "bfloat16", 3, True, {}, POOL_P_STEPS))
+    out = {}
+    with tempfile.TemporaryDirectory() as results_dir, warnings.catch_warnings():
+        # perceptual_small_phase checked and printed the random-VGG warning
+        warnings.filterwarnings("ignore", message=".*" + RANDOM_VGG)
+        for prior, cd, n_gen, gan, extra, steps in runs:
+            t0 = time.perf_counter()
+            torch.cuda.empty_cache()
+            run = Flagship(dev, cd, 12, clips, results_dir, n_gen=n_gen, gan=gan,
+                           steps=steps, train={"perceptual_weight": P_WEIGHT, **extra},
+                           tag=f" perceptual {prior}")
+            try:
+                ext = run.trainer.extractor
+                check(ext is not None and not any(p.requires_grad for p in ext.parameters()),
+                      f"{run.tag}: no frozen extractor")
+                calls = _count_extractor_calls(ext)
+                calls.update(hr=0, sr=0)
+                rec = run.counted(rk)
+                calls = dict(calls)  # the counted epoch's; more calls follow
+                check(calls == {"hr": steps, "sr": steps * n_gen},
+                      f"{run.tag}: extractor calls {calls} in {steps} steps, expected "
+                      f"HR once a batch and SR once a member")
+                check(math.isfinite(rec["p_loss"]) and rec["p_loss"] > 0,
+                      f"{run.tag}: p_loss {rec['p_loss']}")
+                out[run.tag] = rec
+                split = ""
+                if n_gen == 1:
+                    busy, groups = profile_epoch(run.trainer, run.pipe, steps, run.tag)
+                    run.epochs += 1
+                    alone = extractor_device_ms(ext, dev, 12)
+                    ext_ms = alone["hr"][0] + alone["sr"][0]
+                    ext_conv = alone["hr"][0] * alone["hr"][1] + alone["sr"][0] * alone["sr"][1]
+                    conv = groups.get("conv", 0.0)
+                    split = (f"; the extractor's passes alone on the device {ext_ms:.2f} "
+                             f"ms/step (HR forward {alone['hr'][0]:.2f} ms, conv share "
+                             f"{alone['hr'][1]:.3f}; SR forward + input gradient "
+                             f"{alone['sr'][0]:.2f} ms, conv share {alone['sr'][1]:.3f}) "
+                             f"of the step's device busy {busy:.2f} ms ({ext_ms / busy:.3f}); "
+                             f"convs: the extractor's {ext_conv:.2f} ms, the generator's "
+                             f"(the step's {conv:.2f} less the extractor's) "
+                             f"{conv - ext_conv:.2f} ms; the rest of the step "
+                             f"{busy - ext_ms:.2f} ms")
+                print(f"perceptual {run.tag}: counted epoch {rec['step_ms']:.2f} ms/step "
+                      f"{12e3 / rec['step_ms']:.2f} img/s, peak memory "
+                      f"{rec['peak_gib']:.2f} GiB; extractor calls {calls}; p_loss "
+                      f"{rec['p_loss']:.6f}{split}; run {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+            finally:
+                run.close()
+                del run
+    return out
+
+
+def perceptual_entry_phase(dev, root: str) -> str:
+    """The perceptual entry points on the card, as a user runs them:
+    ``python3 -m srgan_tpu_torch.cli train-encoder`` as a subprocess on a PNG
+    folder of 48 clips at the JAX CLI's defaults (batch 32, crop 96, load
+    160, features 32 64 128, embed 128) with ``--steps 200`` (its JSON line;
+    lossN < loss0; the archive loads); ``train --perceptual 0.1
+    --perceptual-encoder`` as a subprocess in fp32, one epoch of 2 steps on
+    the entry-point phase's folders; ``eval --perceptual-metric`` on 12 pairs
+    of that snapshot through ``cli.main``, the card against the CPU (PSNR
+    within 1e-3 dB, the distance within rel 1e-4). Returns the archive."""
+    from srgan_tpu_torch.models.encoder import load_encoder_npz
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(root, "encoder_data")
+    _png_folder(data, smooth_clips(dev, 48, 21))
+    enc_path = os.path.join(root, "encoder.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "srgan_tpu_torch.cli", "train-encoder", "--data", data,
+         "--out", enc_path, "--steps", "200"],
+        cwd=here, capture_output=True, text=True, timeout=600,
+    )
+    enc_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"train-encoder exited {proc.returncode}: {proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(rec["steps"] == 200 and rec["images"] == 48 and rec["lossN"] < rec["loss0"],
+          f"train-encoder: {rec}")
+    enc = load_encoder_npz(enc_path)
+    check(enc.features == (32, 64, 128) and enc.embed_dim == 128 and enc.proj is not None,
+          f"train-encoder: archive holds {enc.meta()}")
+    print(f"perceptual train-encoder (subprocess, 48 clips, 200 steps, batch 32, crop 96): "
+          f"{json.dumps(rec)}; {enc_s:.1f} s with process start", flush=True)
+
+    res = os.path.join(root, "results_perceptual")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "srgan_tpu_torch.cli", "train", "--train-dir",
+         os.path.join(root, "train"), "--val-dir", os.path.join(root, "val"),
+         "--batch-size", "12", "--epochs", "1", "--perceptual", str(P_WEIGHT),
+         "--perceptual-encoder", enc_path, "--results-dir", res, "--progress", "off"],
+        cwd=here, capture_output=True, text=True, timeout=600,
+    )
+    train_s = time.perf_counter() - t0
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0,
+          f"train --perceptual-encoder exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(os.path.join(res, "Training_metrics.jsonl")) as f:
+        jrec = json.loads(f.readline())
+    check(jrec["n_batches"] == 2 and jrec["p_loss"] > 0 and math.isfinite(jrec["g_loss"]),
+          f"train --perceptual-encoder: record {jrec}")
+
+    pairs = os.path.join(root, "perceptual_pairs")
+    _pairs_folder(pairs, smooth_clips(dev, 12, 22))
+    argv = ["eval", "-D", pairs, "--results-dir", res, "--perceptual-metric", enc_path]
+    t0 = time.perf_counter()
+    card, _ = _cli(argv)
+    eval_s = time.perf_counter() - t0
+    cpu, _ = _cli(argv + ["--device", "cpu"])
+    dpsnr, drel = abs(card[0] - cpu[0]), abs(card[2] - cpu[2]) / abs(cpu[2])
+    check(dpsnr <= 1e-3 and drel <= 1e-4 and card[2] > 0,
+          f"eval --perceptual-metric card {card} vs CPU {cpu}")
+    print(f"perceptual entry points: train --perceptual {P_WEIGHT} --perceptual-encoder fp32 "
+          f"1 epoch of 2 steps in {train_s:.1f} s as a subprocess (p_loss "
+          f"{jrec['p_loss']:.6f}, psnr {jrec['psnr']:.3f}); eval --perceptual-metric on 12 "
+          f"pairs: card {card}, CPU {cpu} (|dpsnr| {dpsnr:.2e} dB, distance rel "
+          f"{drel:.2e}), {eval_s / 12 * 1e3:.1f} ms/image on the card; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return enc_path
 
 
 SERVE_LR = (128, 256)  # the LR of HR 512x1024 at 4x
@@ -1448,14 +1750,19 @@ def main() -> int:
     gan = gan_training_phase(rk, dev)
     with tempfile.TemporaryDirectory() as root:
         entry, res = entry_point_phase(rk, dev, root)
+        perceptual_small_phase(dev)
+        enc_path = perceptual_entry_phase(dev, root)
+        perceptual = perceptual_training_phase(rk, dev, enc_path)
         tower = tower_phase(dev)
         serve = serve_phase(rk, tk, dev, res)
     # K1-K3's launches on each path this script drove, each read just after
     # its run: 3 steps of the flagship (fp32; its counts are "launches"),
     # of the pool of 3 and of the one-generator GAN run, 2 steps of each
-    # counted entry-point leg, and the serving phase (none)
+    # counted entry-point leg, 3 steps of each one-generator perceptual run
+    # and 2 of the perceptual pool of 3, and the serving phase (none)
     by_path = {"pixel fp32": counts, **{k: v["counts"] for k, v in gan.items()},
-               **{f"entry point {k}": v for k, v in entry.items()}, "serve": serve}
+               **{f"entry point {k}": v for k, v in entry.items()},
+               **{k: v["counts"] for k, v in perceptual.items()}, "serve": serve}
 
     line = []
     for name, rec in kernels.items():

@@ -1,20 +1,21 @@
 """Command-line entry point of the port: ``python -m srgan_tpu_torch.cli
-{train,eval,upscale,upscale-dir} ...``, the counterpart of
+{train,train-encoder,eval,upscale,upscale-dir} ...``, the counterpart of
 ``srgan_tpu/cli.py`` with the same flags, defaults and ``Config`` mapping,
 plus ``--device`` on every subcommand (default ``cuda``; ``cpu`` runs on
 the CPU), the counterpart of ``JAX_PLATFORMS``.
 
 ``train``: ``--gan`` trains with the discriminator and ``--num-generators
 N`` trains a pool of N generators (the stacked pool's scan executor when
-N > 1). ``eval`` scores a paired LR/HR set (``eval/evaluation.py``),
-``upscale`` one image (``--tile`` for the tiled path) and ``upscale-dir`` a
-folder (``eval/inference.py``); ``--ensemble``, ``--tta`` and ``--ema``
-select the serving mode. Flags whose feature is not ported reach an error
-that names its ROADMAP.md item: ``--perceptual`` in the ``Trainer`` and
-``--perceptual-metric`` in ``evaluate_model`` (item 8); ``--pool-exec
+N > 1); ``--perceptual WEIGHT`` adds the perceptual term, its features from
+``--perceptual-encoder`` (a trained encoder) or VGG19 (``--vgg-weights``).
+``train-encoder`` trains that encoder and prints one JSON line. ``eval``
+scores a paired LR/HR set (``eval/evaluation.py``; ``--perceptual-metric``
+adds the encoder distance), ``upscale`` one image (``--tile`` for the tiled
+path) and ``upscale-dir`` a folder (``eval/inference.py``);
+``--ensemble``, ``--tta`` and ``--ema`` select the serving mode. Flags whose
+feature is not ported raise naming their ROADMAP.md item: ``--pool-exec
 vmap`` (item 7), ``--profile-dir`` (item 11), ``--multihost`` and ``--dp``
-(item 10) here. The JAX CLI's ``train-encoder`` subcommand is not ported
-(items 8 and 11).
+(item 10).
 """
 
 from __future__ import annotations
@@ -49,11 +50,12 @@ def _add_train(sub):
                    help="pretrained VGG19 feature weights (.npz) for "
                         "--perceptual")
     p.add_argument("--perceptual", type=float, default=0.0, metavar="WEIGHT",
-                   help="perceptual-loss weight, 0 = off (not ported yet: "
-                        "ROADMAP.md queue 1, item 8)")
+                   help="perceptual-loss weight (0 = off, as the reference "
+                        "ships); features from --perceptual-encoder, else "
+                        "VGG19 (--vgg-weights, else random with a warning)")
     p.add_argument("--perceptual-encoder", default=None, metavar="NPZ",
                    help="trained contrastive-encoder feature prior for "
-                        "--perceptual")
+                        "--perceptual (see train-encoder)")
     p.add_argument("--starting-gan-loss", type=float, default=None,
                    help="two-regime gate threshold (readme.md:10); default "
                         "auto: calibrated at the first epoch end to "
@@ -175,8 +177,8 @@ def _add_eval(sub):
                         "directly (BatchNorm folded on load)")
     _add_serve_modes(p)
     p.add_argument("--perceptual-metric", default=None, metavar="NPZ",
-                   help="encoder perceptual distance (not ported yet: "
-                        "ROADMAP.md queue 1, item 8)")
+                   help="also report the trained encoder's perceptual "
+                        "distance (the train-encoder .npz)")
     p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
 
 
@@ -215,6 +217,47 @@ def _add_upscale_dir(sub):
                    help="images per device batch (same-size images batch "
                         "together; sizes are bucketed automatically)")
     p.add_argument("--dp", action="store_true", help=_DP_HELP)
+    p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+
+
+def add_train_encoder_args(p):
+    """The JAX CLI's ``train-encoder`` flags and defaults."""
+    p.add_argument("--data", required=True, help="image folder to train on")
+    p.add_argument("--out", required=True, help="output .npz archive")
+    p.add_argument("--steps", type=int, default=1500)
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--crop", type=int, default=96)
+    p.add_argument("--load-size", type=int, default=160,
+                   help="images are pre-resized to this square size; "
+                        "crops are cut from it on the device")
+    p.add_argument("--features", type=int, nargs="+", default=[32, 64, 128])
+    p.add_argument("--embed-dim", type=int, default=128)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--unif-weight", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+
+
+def run_train_encoder(args) -> dict:
+    from srgan_tpu_torch.training.encoder_train import train_contrastive_encoder
+
+    return train_contrastive_encoder(
+        args.data, args.out,
+        steps=args.steps, batch=args.batch, crop=args.crop,
+        load_size=args.load_size, features=args.features,
+        embed_dim=args.embed_dim, lr=args.lr,
+        unif_weight=args.unif_weight, seed=args.seed, device=args.device,
+    )
+
+
+def _add_train_encoder(sub):
+    p = sub.add_parser(
+        "train-encoder",
+        help="train the contrastive image-encoder perceptual prior "
+             "(alignment + the reference's uniformity loss, "
+             "utils.py:118-137); feed the .npz to train "
+             "--perceptual-encoder",
+    )
+    add_train_encoder_args(p)
     p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
 
 
@@ -288,6 +331,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("srgan_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_train(sub)
+    _add_train_encoder(sub)
     _add_eval(sub)
     _add_upscale(sub)
     _add_upscale_dir(sub)
@@ -298,6 +342,12 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.cmd == "train":
         return _train(args)
+    if args.cmd == "train-encoder":
+        import json
+
+        out = run_train_encoder(args)
+        print(json.dumps(out))
+        return out
     if getattr(args, "dp", False):
         raise NotImplementedError(
             "--dp: data-parallel serving is not ported yet (ROADMAP.md, "

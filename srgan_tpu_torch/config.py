@@ -241,8 +241,8 @@ class TrainConfig:
     # else fall back to random features WITH a runtime warning
     # (``models/vgg.py:init_vgg_extractor``).
     vgg_weights_npz: Optional[str] = None
-    # TRAINED contrastive-encoder feature prior (.npz from
-    # ``scripts/train_encoder.py``) — the reference's planned image-encoder
+    # TRAINED contrastive-encoder feature prior (.npz from ``cli.py
+    # train-encoder``) — the reference's planned image-encoder
     # objective (``src/utils.py:118-137``), realized. When set (and
     # ``perceptual_weight > 0``) it replaces the VGG extractor as the
     # perceptual feature source; unlike VGG it is trainable entirely

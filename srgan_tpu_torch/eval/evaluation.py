@@ -4,7 +4,8 @@
 Argparse contract of the reference (``src/evaluation.py:64-79``):
 ``-D/--data_dir`` (default ``./data``), ``-lr/--lr_dir`` (default
 ``LRbicx4``), ``-hr/--hr_dir`` (default ``original``), plus ``--device``;
-prints running and final average PSNR/SSIM.
+prints running and final average PSNR/SSIM, and with
+``--perceptual-metric`` the average encoder perceptual distance.
 
 Reference semantics kept (switchable):
   - the extra ÷factor downscale of the LR input before SR
@@ -14,8 +15,8 @@ Reference semantics kept (switchable):
     ``--no-enhance`` disables it; without it the SR is scored unclamped;
   - HR resized to the SR size before scoring (``evaluation.py:52-53``).
 
-Each image runs eagerly on the device: forward, enhance, resize and both
-metrics as tensors, one fetch of the (PSNR, SSIM) pair. JAX's
+Each image runs eagerly on the device: forward, enhance, resize and the
+metrics as tensors, one fetch of the (PSNR, SSIM[, distance]) vector. JAX's
 ``_forward_fn`` is :meth:`Upscaler.forward` here.
 """
 
@@ -31,7 +32,9 @@ import torch.nn.functional as F
 
 from srgan_tpu_torch.data.dataset import PairedImageDataset
 from srgan_tpu_torch.eval.inference import Upscaler, _serving_device
+from srgan_tpu_torch.models.encoder import init_encoder_extractor
 from srgan_tpu_torch.models.enhancer import enhance
+from srgan_tpu_torch.models.vgg import perceptual_loss
 from srgan_tpu_torch.ops.metrics import psnr, psnr_masked, ssim, ssim_masked
 from srgan_tpu_torch.ops.resize import resize_bilinear
 
@@ -55,11 +58,14 @@ def evaluate_model(
     verbose: bool = True,
     device=None,
 ) -> tuple:
-    """Returns ``(avg_psnr, avg_ssim, None)`` over the paired eval set
-    (``evaluate_model``, ``src/evaluation.py:15-61``); the fixed 3-tuple of
-    the JAX package, whose third slot is its perceptual distance.
+    """Returns ``(avg_psnr, avg_ssim, avg_perceptual_dist_or_None)`` over
+    the paired eval set (``evaluate_model``, ``src/evaluation.py:15-61``),
+    the JAX package's fixed 3-tuple.
 
-    ``perceptual_metric`` is not ported (ROADMAP.md, queue 1, item 8).
+    ``perceptual_metric``: a trained contrastive-encoder ``.npz``; the third
+    slot is then the mean encoder distance ``perceptual_loss(sr, hr)``
+    (after the enhance and the HR resize), the objective that
+    ``--perceptual-encoder`` trains, else None.
     ``torch_checkpoint``: evaluate a reference PyTorch ``.pth`` generator.
     ``bucketed``: edge-pad every LR input to the set's largest size and
     score with masked PSNR/SSIM, one input shape for a size-diverse set;
@@ -70,11 +76,6 @@ def evaluate_model(
             "edge-padded extent flows through the encoder's feature maps "
             "and there is no masked variant of the feature distance — "
             "score perceptual distance with per-size (non-bucketed) eval"
-        )
-    if perceptual_metric is not None:
-        raise NotImplementedError(
-            "--perceptual-metric: the encoder perceptual prior is not ported "
-            "yet (ROADMAP.md, queue 1, item 8: perceptual prior)"
         )
     _serving_device(device if upscaler is None else upscaler.device)
     eval_data = PairedImageDataset(dataset, lr_path, hr_path)
@@ -127,7 +128,10 @@ def evaluate_model(
         )
 
     dev = upscaler.device
-    t_psnr, t_ssim, n = 0.0, 0.0, 0
+    enc = None
+    if perceptual_metric is not None:
+        enc = init_encoder_extractor(perceptual_metric, device=dev)
+    t_psnr, t_ssim, t_pd, n = 0.0, 0.0, 0.0, 0
     f = upscaler.model.upscale_factor
     for idx in range(len(eval_data)):
         pair = eval_data[idx]
@@ -143,30 +147,45 @@ def evaluate_model(
             # ``evaluation.py:45-46``: shrink the LR input by the model's
             # upscale factor (the reference hardcodes ÷4, its only model)
             lr_b = resize_bilinear(lr_b, (lr_img.shape[0] // f, lr_img.shape[1] // f))
-        p, s = _score(upscaler, lr_b, torch.from_numpy(hr_img).to(dev)[None],
-                      apply_enhance).tolist()
-        t_psnr += p
-        t_ssim += s
+        vals = _score(upscaler, lr_b, torch.from_numpy(hr_img).to(dev)[None],
+                      apply_enhance, enc).tolist()
+        t_psnr += vals[0]
+        t_ssim += vals[1]
+        if enc is not None:
+            t_pd += vals[2]
         n += 1
         if verbose:
-            print(f"[{n}/{len(eval_data)}] psnr={t_psnr / n:.4f} "
-                  f"ssim={t_ssim / n:.4f}", end="\r")
+            line = (f"[{n}/{len(eval_data)}] psnr={t_psnr / n:.4f} "
+                    f"ssim={t_ssim / n:.4f}")
+            if enc is not None:
+                line += f" enc_dist={t_pd / n:.4f}"
+            print(line, end="\r")
     avg_psnr = t_psnr / max(1, n)
     avg_ssim = t_ssim / max(1, n)
+    if enc is not None:
+        avg_pd = t_pd / max(1, n)
+        if verbose:
+            print(f"\naverage psnr = {avg_psnr}, average ssim = {avg_ssim},"
+                  f" average encoder perceptual distance = {avg_pd}")
+        return avg_psnr, avg_ssim, avg_pd
     if verbose:
         print(f"\naverage psnr = {avg_psnr}, average ssim = {avg_ssim}")
     return avg_psnr, avg_ssim, None
 
 
 @torch.no_grad()
-def _score(upscaler, lr_b, hr_b, apply_enhance) -> torch.Tensor:
-    """(PSNR, SSIM) of one image on the device: SR (unclamped unless
-    enhanced), HR resized to the SR size."""
+def _score(upscaler, lr_b, hr_b, apply_enhance, enc=None) -> torch.Tensor:
+    """(PSNR, SSIM) of one image on the device, and the encoder distance
+    where ``enc`` is given: SR (unclamped unless enhanced), HR resized to the
+    SR size."""
     sr = upscaler.forward(lr_b)
     if apply_enhance:
         sr = enhance(sr)
     hr_r = resize_bilinear(hr_b, tuple(sr.shape[1:3]))
-    return torch.stack([psnr(sr[0], hr_r[0]), ssim(sr[0], hr_r[0])])
+    out = [psnr(sr[0], hr_r[0]), ssim(sr[0], hr_r[0])]
+    if enc is not None:
+        out.append(perceptual_loss(sr, hr_r, enc))
+    return torch.stack(out)
 
 
 _SSIM_WIN = 3  # skimage win_size the canonical metrics pin (ops/metrics.py)

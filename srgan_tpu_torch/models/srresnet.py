@@ -215,11 +215,12 @@ class SRResNet(nn.Module):
 
 @torch.no_grad()
 def _init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
-    """flax's initialisers: conv kernels lecun_normal (a normal truncated at
-    ±2σ, rescaled to variance 1/fan_in), conv biases zero, GroupNorm scale
-    one and bias zero. Drawn in module order from ``generator``."""
+    """flax's initialisers: conv and dense kernels lecun_normal (a normal
+    truncated at ±2σ, rescaled to variance 1/fan_in), their biases zero,
+    GroupNorm scale one and bias zero. Drawn in module order from
+    ``generator``."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(

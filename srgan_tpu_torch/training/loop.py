@@ -9,14 +9,18 @@ than one member runs the stacked pool (``training/stacked_pool.py``, the
 scan executor) unless ``PoolConfig.stacked`` is off, which runs the member
 list; the stacked state is mirrored back into the list pool before every
 snapshot. With ``use_gan`` the Trainer also holds the shared
-discriminator and its ``TrainState`` (Adam, no EMA).
+discriminator and its ``TrainState`` (Adam, no EMA). With
+``perceptual_weight > 0`` it holds the frozen perceptual extractor, which
+every generator step is given: the trained contrastive encoder of
+``perceptual_encoder_npz``, else VGG19 at ``vgg_layers`` (weights from
+``vgg_weights_npz``, the torchvision cache, or random with a warning).
 
 Loss scalars stay on the device: every batch packs them into one tensor,
 and the loop fetches batch k−1's while batch k is already queued on the
 card (one host fetch per batch, the JAX loop's lagged drain).
 
-One process drives one device. Not ported yet (each raises, naming its
-ROADMAP.md item): the perceptual term and the ``vmap`` pool executor.
+One process drives one device. Not ported yet (it raises, naming its
+ROADMAP.md item): the ``vmap`` pool executor.
 Configs that the JAX ``Trainer`` refuses raise the same ``ValueError``
 here. ``debug_nans`` checks every drained loss vector and raises
 ``FloatingPointError`` at the first non-finite one (JAX turns on
@@ -37,7 +41,9 @@ import torch
 from srgan_tpu_torch.config import Config
 from srgan_tpu_torch.data.pipeline import DeviceCacheBudget, TrainPipeline
 from srgan_tpu_torch.models.discriminator import init_discriminator
+from srgan_tpu_torch.models.encoder import init_encoder_extractor
 from srgan_tpu_torch.models.srresnet import init_generator
+from srgan_tpu_torch.models.vgg import init_vgg_extractor
 from srgan_tpu_torch.ops.resize import resize_bilinear
 from srgan_tpu_torch.training import checkpoint as ckpt
 from srgan_tpu_torch.training.pool import GeneratorPool, PoolMember
@@ -115,11 +121,6 @@ class Trainer:
                 "ported yet (ROADMAP.md, queue 1, item 7: generator pool); "
                 "'scan' computes the same updates"
             )
-        if cfg.train.perceptual_weight > 0.0:
-            raise NotImplementedError(
-                "perceptual_weight > 0: the perceptual prior is not ported "
-                "yet (ROADMAP.md, queue 1: perceptual prior)"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         # compute_dtype "float32" is full fp32: cuDNN convs default to TF32
@@ -145,6 +146,19 @@ class Trainer:
             )
             self.d_state = TrainState(d_model, b1=cfg.train.adam_b1,
                                       b2=cfg.train.adam_b2)
+        # the frozen perceptual extractor (opt-in; the reference builds its
+        # VGG at ``train.py:49`` and ships the loss off): the trained
+        # encoder when given, else VGG19, its random weights from
+        # (seed, N) as JAX gives it the key before D's
+        self.extractor = None
+        if cfg.train.perceptual_weight > 0.0:
+            if cfg.train.perceptual_encoder_npz:
+                self.extractor = init_encoder_extractor(
+                    cfg.train.perceptual_encoder_npz, device=self.device)
+            else:
+                self.extractor = init_vgg_extractor(
+                    _mix(cfg.train.seed, n), layers=tuple(cfg.train.vgg_layers),
+                    weights_npz=cfg.train.vgg_weights_npz, device=self.device)
         self.spool: Optional[StackedGeneratorPool] = None
         if self.use_stacked:
             self.spool = StackedGeneratorPool.create(
@@ -240,6 +254,7 @@ class Trainer:
         gen = _epoch_generator(pipeline.device, cfg.train.seed, epoch)
         use_gan = self.d_state is not None
         names = _packed_names(self.spool.n, use_gan)
+        px = dict(extractor=self.extractor, p_weight=cfg.train.perceptual_weight)
 
         sums = dict.fromkeys(_SUM_KEYS, 0.0)
         n_batches = 0
@@ -274,11 +289,11 @@ class Trainer:
             if use_gan:
                 self.spool.state, self.d_state, metrics = scanned_pool_gan_step(
                     self.spool.state, self.d_state, hr, lr_imgs, gan_mask,
-                    g_lr, d_lr, d_target_idx=self._d_target(n_batches),
+                    g_lr, d_lr, d_target_idx=self._d_target(n_batches), **px,
                 )
             else:
                 self.spool.state, metrics = scanned_pool_step(
-                    self.spool.state, hr, lr_imgs, g_lr,
+                    self.spool.state, hr, lr_imgs, g_lr, **px,
                 )
             if pending is not None:
                 drain(*pending)
@@ -310,6 +325,7 @@ class Trainer:
         gen = _epoch_generator(pipeline.device, cfg.train.seed, epoch)
         members = self.pool.members
         has_d = self.d_state is not None
+        px = dict(extractor=self.extractor, p_weight=cfg.train.perceptual_weight)
 
         sums = dict.fromkeys(_SUM_KEYS, 0.0)
         n_batches = 0
@@ -362,17 +378,17 @@ class Trainer:
                     # one member: its GAN update and the D update fuse; with
                     # more, members after d_idx would read the updated D
                     member.state, self.d_state, metrics = gan_train_step(
-                        member.state, self.d_state, hr, lr_imgs, g_lr, d_lr,
+                        member.state, self.d_state, hr, lr_imgs, g_lr, d_lr, **px,
                     )
                     d_in_packed = True
                 elif used_gan:
                     member.state, metrics = generator_gan_step(
                         member.state, self.d_state.model, hr, lr_imgs, g_lr,
-                        return_sr=want_sr,
+                        return_sr=want_sr, **px,
                     )
                 else:
                     member.state, metrics = generator_pixel_step(
-                        member.state, hr, lr_imgs, g_lr, return_sr=want_sr,
+                        member.state, hr, lr_imgs, g_lr, return_sr=want_sr, **px,
                     )
                 if want_sr and "sr" in metrics:
                     sr_for_d = metrics.pop("sr")

@@ -17,9 +17,13 @@ The GAN steps keep JAX's pairing: every member reads the discriminator
 before its update, D(hr) is computed once a batch (with its graph, which
 D's own loss reuses; the members read it detached), and the one D update
 trains on the selected member's pre-update SR, after the member loop.
-Each member's loss is ``com + tv + mask·g_d``; ``g_d`` is reported for
-every member, and a member with mask 0 takes it without a graph through D
-(its gradient contribution is exactly 0).
+Each member's loss is ``com + tv + mask·g_d + p_weight·p``; ``g_d`` is
+reported for every member, and a member with mask 0 takes it without a
+graph through D (its gradient contribution is exactly 0). With a perceptual
+extractor the HR features are taken once a batch, before the member loop,
+as JAX hoists them out of its scan; they carry no graph, so every member
+may share them although each member's Adam step runs before the next
+member's forward.
 
 Not ported: the ``vmap`` executor (``member_exec="vmap"``, ROADMAP.md): the
 loss kernels' ``autograd.Function`` has no vmap rule. JAX's tests hold its
@@ -38,7 +42,12 @@ from srgan_tpu_torch.config import PoolConfig
 from srgan_tpu_torch.ops.gan_loss import generator_adversarial_loss
 from srgan_tpu_torch.ops.recon_loss import reconstruction_loss
 from srgan_tpu_torch.training.pool import interpolate_params
-from srgan_tpu_torch.training.steps import discriminator_step_on_sr, pack_metrics
+from srgan_tpu_torch.training.steps import (
+    discriminator_step_on_sr,
+    pack_metrics,
+    perceptual_term,
+    real_features,
+)
 from srgan_tpu_torch.training.train_state import TrainState
 
 
@@ -73,14 +82,17 @@ def mutual_learning_lerp(member_params: Sequence[Sequence[torch.Tensor]],
 
 def _scan_pool_update(states: Sequence[TrainState], hr, lr_imgs, g_lr: float,
                       d_model: Optional[nn.Module] = None, d_real=None,
-                      gan_mask=None, d_target_idx: int = 0):
+                      gan_mask=None, d_target_idx: int = 0,
+                      extractor: Optional[nn.Module] = None, p_weight: float = 0.0):
     """The member loop: each member's gradient and Adam step in turn, against
     ``d_model`` where given (read, not changed; ``d_real`` is D(hr),
-    detached). Returns the (N,) losses ``(com, tv, g_d, g)`` and member
-    ``d_target_idx``'s pre-update SR (detached)."""
+    detached), with the perceptual term where ``extractor`` is given (the HR
+    features taken once, here). Returns the (N,) losses ``(com, tv, g_d, p,
+    g)`` and member ``d_target_idx``'s pre-update SR (detached)."""
     mask = np.zeros(len(states)) if gan_mask is None else np.asarray(gan_mask)
     zero = torch.zeros((), device=hr.device)
-    com_l, tv_l, g_d_l, g_l = [], [], [], []
+    f_real = None if extractor is None else real_features(extractor, hr)
+    com_l, tv_l, g_d_l, p_l, g_l = [], [], [], [], []
     sr_keep = None
     for i, st in enumerate(states):
         st.model.train()
@@ -92,6 +104,10 @@ def _scan_pool_update(states: Sequence[TrainState], hr, lr_imgs, g_lr: float,
             with torch.set_grad_enabled(bool(mask[i])):
                 g_d = generator_adversarial_loss(d_real, d_model(sr))
         loss = com + tv + float(mask[i]) * g_d
+        p = zero
+        if f_real is not None:
+            p = perceptual_term(sr, f_real, extractor)
+            loss = loss + p_weight * p
         grads = torch.autograd.grad(loss, st.params)
         st.apply_gradients(grads, g_lr)
         if i == d_target_idx:
@@ -99,14 +115,14 @@ def _scan_pool_update(states: Sequence[TrainState], hr, lr_imgs, g_lr: float,
         com_l.append(com.detach())
         tv_l.append(tv.detach())
         g_d_l.append(g_d.detach())
+        p_l.append(p.detach())
         g_l.append(loss.detach())
-    return tuple(map(torch.stack, (com_l, tv_l, g_d_l, g_l))), sr_keep
+    return tuple(map(torch.stack, (com_l, tv_l, g_d_l, p_l, g_l))), sr_keep
 
 
 def _metrics(losses) -> dict:
-    com, tv, g_d, g = losses
-    return {"com_loss": com, "tv_loss": tv, "g_d_loss": g_d,
-            "p_loss": torch.zeros_like(com), "g_loss": g}
+    com, tv, g_d, p, g = losses
+    return {"com_loss": com, "tv_loss": tv, "g_d_loss": g_d, "p_loss": p, "g_loss": g}
 
 
 def scanned_pool_step(
@@ -114,10 +130,14 @@ def scanned_pool_step(
     hr: torch.Tensor,
     lr_imgs: torch.Tensor,
     lr: float,
+    extractor: Optional[nn.Module] = None,
+    p_weight: float = 0.0,
 ) -> Tuple[List[TrainState], dict]:
     """One pixel update of every member on one batch (the pool's pixel
-    phase). ``metrics["packed"]`` is (5, N)."""
-    losses, _ = _scan_pool_update(states, hr, lr_imgs, lr)
+    phase), with the perceptual term where ``extractor`` is given.
+    ``metrics["packed"]`` is (5, N)."""
+    losses, _ = _scan_pool_update(states, hr, lr_imgs, lr, extractor=extractor,
+                                  p_weight=p_weight)
     metrics = _metrics(losses)
     metrics["packed"] = pack_metrics(metrics)
     return states, metrics
@@ -132,15 +152,19 @@ def scanned_pool_gan_step(
     g_lr: float,
     d_lr: float,
     d_target_idx: int = 0,
+    extractor: Optional[nn.Module] = None,
+    p_weight: float = 0.0,
 ) -> Tuple[List[TrainState], TrainState, dict]:
     """The member loop against the pre-update D, then the one D update on
     member ``d_target_idx``'s pre-update SR. ``gan_mask``: (N,) host floats,
     1 where the member takes the adversarial term. D(hr) is computed once,
-    with its graph for D's loss; the members read it detached.
-    ``metrics["packed"]`` is the flat (5N + 1,) vector, ``d_loss`` last."""
+    with its graph for D's loss; the members read it detached. The
+    perceptual term as in :func:`scanned_pool_step`. ``metrics["packed"]``
+    is the flat (5N + 1,) vector, ``d_loss`` last."""
     real_preds = d_state.model(hr)
     losses, sr_d = _scan_pool_update(states, hr, lr_imgs, g_lr, d_state.model,
-                                     real_preds.detach(), gan_mask, d_target_idx)
+                                     real_preds.detach(), gan_mask, d_target_idx,
+                                     extractor, p_weight)
     d_state, d_metrics = discriminator_step_on_sr(d_state, hr, sr_d, d_lr,
                                                   real_preds=real_preds)
     metrics = {**_metrics(losses), "d_loss": d_metrics["d_loss"]}

@@ -1,6 +1,8 @@
 """Train, eval and infer steps, the counterpart of
 ``srgan_tpu/training/steps.py``: the pixel step, the GAN steps (generator,
-discriminator, and the two fused), the eval step and the serving steps:
+discriminator, and the two fused), the perceptual term that every generator
+step adds when it is given a feature extractor, the eval step and the
+serving steps:
 the plain forward, the pool ensemble (the member mean), the x8 dihedral
 self-ensemble (TTA) and their twins that quantise to uint8 on the device.
 
@@ -16,6 +18,12 @@ update, the discriminator trains on the generator's pre-update SR
 either Adam update. Gradients are taken with ``torch.autograd.grad`` of
 the state's own parameters only, so the other network's parameters collect
 nothing.
+
+The perceptual term (``extractor``: ``models/vgg.py:VGG19Features`` or
+``models/encoder.py:ConvEncoder``, frozen; ``p_weight``): the HR features
+are taken under ``torch.no_grad()``, ``g_loss += p_weight · p_loss``, and the
+unweighted ``p_loss`` rides the packed metrics. The extractor runs in f32
+whatever the generator's dtype, as in JAX.
 """
 
 from __future__ import annotations
@@ -48,14 +56,42 @@ def pack_metrics(metrics: dict, d_loss=None) -> torch.Tensor:
     return packed
 
 
-def generator_pixel_loss_fn(model: nn.Module, hr, lr_imgs):
+def perceptual_term(sr: torch.Tensor, f_real: dict, extractor: nn.Module) -> torch.Tensor:
+    """Summed per-tap mean |f(sr) − f_real| over ``f_real``'s taps, in its key
+    order (reference ``perceptal_loss`` [sic], ``src/utils.py:154-166``).
+    ``f_real``, the HR features, carries no generator gradient: the caller
+    extracts it once and passes it in."""
+    f_fake = extractor(sr)
+    p_loss = torch.zeros((), device=sr.device)
+    for key in f_real:
+        p_loss = p_loss + (f_fake[key] - f_real[key]).abs().mean()
+    return p_loss
+
+
+def real_features(extractor: nn.Module, hr: torch.Tensor) -> dict:
+    """The HR features of the perceptual term, without a graph."""
+    with torch.no_grad():
+        return extractor(hr)
+
+
+def _add_perceptual(g_loss, sr, hr, extractor, p_weight):
+    """``(g_loss + p_weight·p_loss, p_loss)``; p_loss 0 without an
+    extractor."""
+    if extractor is None:
+        return g_loss, torch.zeros((), device=hr.device)
+    p_loss = perceptual_term(sr, real_features(extractor, hr), extractor)
+    return g_loss + p_weight * p_loss, p_loss
+
+
+def generator_pixel_loss_fn(model: nn.Module, hr, lr_imgs, extractor=None,
+                            p_weight: float = 0.0):
     """Pixel-phase objective: edge-weighted L1 + masked TV
-    (``src/train.py:194-195``: ``g_loss = com_loss + tv_loss``)."""
+    (``src/train.py:194-195``: ``g_loss = com_loss + tv_loss``), plus the
+    opt-in perceptual term (``src/utils.py:154-166``)."""
     sr = model(lr_imgs)
     com_loss, tv_loss = reconstruction_loss(hr, sr)
-    g_loss = com_loss + tv_loss
-    return g_loss, {"com_loss": com_loss, "tv_loss": tv_loss,
-                    "p_loss": torch.zeros((), device=hr.device), "sr": sr}
+    g_loss, p_loss = _add_perceptual(com_loss + tv_loss, sr, hr, extractor, p_weight)
+    return g_loss, {"com_loss": com_loss, "tv_loss": tv_loss, "p_loss": p_loss, "sr": sr}
 
 
 def generator_pixel_step(
@@ -63,15 +99,18 @@ def generator_pixel_step(
     hr: torch.Tensor,
     lr_imgs: torch.Tensor,
     lr: float,
+    extractor: nn.Module | None = None,
+    p_weight: float = 0.0,
     return_sr: bool = False,
 ) -> Tuple[TrainState, dict]:
     """One pixel-loss generator update (``train_generator``,
-    ``src/train.py:175-203``). Updates ``g_state`` in place and returns it
-    with the step's metrics. ``return_sr=True`` keeps ``metrics["sr"]``, the
+    ``src/train.py:175-203``), with the weighted perceptual term when
+    ``extractor`` is given. Updates ``g_state`` in place and returns it with
+    the step's metrics. ``return_sr=True`` keeps ``metrics["sr"]``, the
     pre-update SR (detached), for a following discriminator update."""
     model = g_state.model
     model.train()
-    g_loss, aux = generator_pixel_loss_fn(model, hr, lr_imgs)
+    g_loss, aux = generator_pixel_loss_fn(model, hr, lr_imgs, extractor, p_weight)
     grads = torch.autograd.grad(g_loss, g_state.params)
     g_state.apply_gradients(grads, lr)
     metrics = {"g_loss": g_loss.detach(), "g_d_loss": torch.zeros_like(aux["p_loss"]),
@@ -83,12 +122,13 @@ def generator_pixel_step(
 
 
 def generator_gan_loss_fn(model: nn.Module, d_model: nn.Module, hr, lr_imgs,
-                          real_preds=None):
+                          real_preds=None, extractor=None, p_weight: float = 0.0):
     """GAN-phase objective: the pixel terms plus the relativistic term
     ``mean(tanh(D(hr) - D(sr)))`` (``src/train.py:184-192``), D(hr)
-    detached. ``real_preds``: D(hr) where the caller has it (with its graph,
-    for a fused discriminator update), else computed here without one.
-    Returns the loss and its parts, D(sr) among them."""
+    detached, plus the opt-in perceptual term. ``real_preds``: D(hr) where
+    the caller has it (with its graph, for a fused discriminator update),
+    else computed here without one. Returns the loss and its parts, D(sr)
+    among them."""
     sr = model(lr_imgs)
     com_loss, tv_loss = reconstruction_loss(hr, sr)
     if real_preds is None:
@@ -96,11 +136,11 @@ def generator_gan_loss_fn(model: nn.Module, d_model: nn.Module, hr, lr_imgs,
             real_preds = d_model(hr)
     fake_preds = d_model(sr)
     g_d_loss = generator_adversarial_loss(real_preds.detach(), fake_preds)
-    g_loss = com_loss + tv_loss + g_d_loss
+    g_loss, p_loss = _add_perceptual(com_loss + tv_loss + g_d_loss, sr, hr,
+                                     extractor, p_weight)
     return g_loss, {
         "com_loss": com_loss, "tv_loss": tv_loss, "g_d_loss": g_d_loss,
-        "p_loss": torch.zeros((), device=hr.device), "sr": sr,
-        "fake_preds": fake_preds,
+        "p_loss": p_loss, "sr": sr, "fake_preds": fake_preds,
     }
 
 
@@ -115,12 +155,16 @@ def generator_gan_step(
     hr: torch.Tensor,
     lr_imgs: torch.Tensor,
     lr: float,
+    extractor: nn.Module | None = None,
+    p_weight: float = 0.0,
     return_sr: bool = False,
 ) -> Tuple[TrainState, dict]:
     """One GAN-phase generator update against ``d_model``, which it does
-    not change. ``return_sr`` as in :func:`generator_pixel_step`."""
+    not change. ``extractor``, ``p_weight`` and ``return_sr`` as in
+    :func:`generator_pixel_step`."""
     g_state.model.train()
-    g_loss, aux = generator_gan_loss_fn(g_state.model, d_model, hr, lr_imgs)
+    g_loss, aux = generator_gan_loss_fn(g_state.model, d_model, hr, lr_imgs,
+                                        extractor=extractor, p_weight=p_weight)
     grads = torch.autograd.grad(g_loss, g_state.params)
     g_state.apply_gradients(grads, lr)
     metrics = _gan_metrics(g_loss, aux)
@@ -137,6 +181,8 @@ def gan_train_step(
     lr_imgs: torch.Tensor,
     g_lr: float,
     d_lr: float,
+    extractor: nn.Module | None = None,
+    p_weight: float = 0.0,
 ) -> Tuple[TrainState, TrainState, dict]:
     """Generator and discriminator GAN updates in one step, the same as
     :func:`generator_gan_step` (``return_sr=True``) followed by
@@ -146,7 +192,7 @@ def gan_train_step(
     g_state.model.train()
     real_preds = d_state.model(hr)
     g_loss, aux = generator_gan_loss_fn(g_state.model, d_state.model, hr, lr_imgs,
-                                        real_preds)
+                                        real_preds, extractor, p_weight)
     d_loss = discriminator_loss(real_preds, aux["fake_preds"])
     g_grads = torch.autograd.grad(g_loss, g_state.params, retain_graph=True)
     d_grads = torch.autograd.grad(d_loss, d_state.params)
@@ -156,6 +202,22 @@ def gan_train_step(
     metrics = {**_gan_metrics(g_loss, aux), "d_loss": d_loss}
     metrics["packed"] = pack_metrics(metrics, d_loss)
     return g_state, d_state, metrics
+
+
+def generator_perceptual_step(
+    g_state: TrainState,
+    extractor: nn.Module,
+    hr: torch.Tensor,
+    lr_imgs: torch.Tensor,
+    lr: float,
+    weight: float,
+) -> Tuple[TrainState, dict]:
+    """Pixel objective + the feature-L1 perceptual term, as one update: the
+    reference builds the extractor but leaves the loss out of its loop
+    (``src/train.py:49,157``); here ``TrainConfig.perceptual_weight`` /
+    ``--perceptual`` reach it. :func:`generator_pixel_step` with the
+    extractor threaded through."""
+    return generator_pixel_step(g_state, hr, lr_imgs, lr, extractor, weight)
 
 
 def discriminator_step(

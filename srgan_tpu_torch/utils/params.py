@@ -134,6 +134,82 @@ def discriminator_to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
     return tree
 
 
+def _conv_from_jax(leaf) -> tuple:
+    """A flax conv leaf → (OIHW weight, bias) tensors."""
+    k = np.asarray(leaf["kernel"], np.float32)
+    return (torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1))),
+            torch.from_numpy(np.array(leaf["bias"], dtype=np.float32)))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def vgg_from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """flax param tree of ``srgan_tpu.models.vgg.VGG19Features`` (``conv_k``:
+    HWIO ``kernel``, ``bias``) → the port's ``state_dict`` (``conv_k.weight``
+    OIHW, ``conv_k.bias``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaf in tree.items():
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = _conv_from_jax(leaf)
+    return sd
+
+
+def vgg_to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`vgg_from_jax_params`, numpy leaves."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        name, param = key.rsplit(".", 1)
+        arr = _np(value)
+        tree.setdefault(name, {})["kernel" if param == "weight" else "bias"] = (
+            arr.transpose(2, 3, 1, 0) if param == "weight" else arr)
+    return tree
+
+
+def encoder_from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """flax param tree of ``srgan_tpu.models.encoder.ConvEncoder`` → the
+    port's ``state_dict``: ``downs_i`` / ``convs_i`` (HWIO) ↔ ``downs.i`` /
+    ``convs.i`` (OIHW); ``gn_a_i`` / ``gn_b_i`` ``scale`` ↔ ``gn_a.i`` /
+    ``gn_b.i`` ``weight``; ``proj`` (Dense, kernel (in, out)) ↔ ``proj``
+    (Linear, weight (out, in)), where present."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaf in tree.items():
+        if name == "proj":
+            sd["proj.weight"] = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(leaf["kernel"], np.float32).T))
+            sd["proj.bias"] = torch.from_numpy(np.array(leaf["bias"], dtype=np.float32))
+            continue
+        group, i = name.rsplit("_", 1)
+        if group.startswith("gn_"):
+            sd[f"{group}.{i}.weight"] = torch.from_numpy(
+                np.array(leaf["scale"], dtype=np.float32))
+            sd[f"{group}.{i}.bias"] = torch.from_numpy(
+                np.array(leaf["bias"], dtype=np.float32))
+        else:
+            sd[f"{group}.{i}.weight"], sd[f"{group}.{i}.bias"] = _conv_from_jax(leaf)
+    return sd
+
+
+def encoder_to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`encoder_from_jax_params`, numpy leaves."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        arr = _np(value)
+        if key.startswith("proj."):
+            tree.setdefault("proj", {})[
+                "kernel" if key.endswith("weight") else "bias"
+            ] = arr.T if key.endswith("weight") else arr
+            continue
+        group, i, param = key.split(".")
+        leaf = tree.setdefault(f"{group}_{i}", {})
+        if group.startswith("gn_"):
+            leaf["scale" if param == "weight" else "bias"] = arr
+        else:
+            leaf["kernel" if param == "weight" else "bias"] = (
+                arr.transpose(2, 3, 1, 0) if param == "weight" else arr)
+    return tree
+
+
 _TOWER_FIELDS = ("w1", "s1", "b1", "w2", "s2", "b2")
 
 

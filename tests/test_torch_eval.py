@@ -135,9 +135,16 @@ class TestEvaluateModel:
                                  device="cpu", **kw)
 
     def test_perceptual_metric_names_its_item(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            teval.evaluate_model(str(tmp_path), "a", "b", perceptual_metric="e.npz",
-                                 device="cpu")
+        """The metric is ported (tests/test_torch_perceptual.py holds it
+        against JAX): a missing encoder archive raises FileNotFoundError, as
+        in JAX, where it raised naming ROADMAP item 8 before."""
+        root = _pairs(str(tmp_path), [(16, 16)])
+        jup, tup = _upscalers()
+        for evaluate, up, kw in ((jeval.evaluate_model, jup, {}),
+                                 (teval.evaluate_model, tup, {"device": "cpu"})):
+            with pytest.raises(FileNotFoundError):
+                evaluate(root, "LRbicx4", "original", upscaler=up, verbose=False,
+                         perceptual_metric=str(tmp_path / "e.npz"), **kw)
 
 
 @pytest.fixture(scope="module")
@@ -210,13 +217,16 @@ class TestCLI:
         assert got == want and math.isfinite(got[0])
         assert teval.main(argv) == want  # the standalone script's contract
 
-    @pytest.mark.parametrize("argv,match", [
-        (["upscale", "a.png", "b.png", "--dp"], "item 10"),
-        (["upscale-dir", "a", "b", "--dp"], "item 10"),
-        (["eval", "--perceptual-metric", "e.npz", "--device", "cpu"], "item 8"),
+    @pytest.mark.parametrize("argv,exc,match", [
+        (["upscale", "a.png", "b.png", "--dp"], NotImplementedError, "item 10"),
+        (["upscale-dir", "a", "b", "--dp"], NotImplementedError, "item 10"),
+        (["eval", "--perceptual-metric", "e.npz", "--bucketed", "--device", "cpu"],
+         ValueError, "not supported with --bucketed"),
     ])
-    def test_unported_flags_name_their_item(self, argv, match):
-        with pytest.raises(NotImplementedError, match=match):
+    def test_unported_flags_name_their_item(self, argv, exc, match):
+        """--dp names its ROADMAP item; --perceptual-metric is ported and
+        refuses --bucketed, as in JAX."""
+        with pytest.raises(exc, match=match):
             cli.main(argv)
 
     def test_default_device_is_the_card(self, trained, tmp_path, monkeypatch):

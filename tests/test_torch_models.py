@@ -263,10 +263,12 @@ class TestImports:
         )
         assert out.returncode == 0, out.stderr
         names = set(out.stdout.split())
-        assert len(names) >= 37
+        assert len(names) >= 40
         assert {"srgan_tpu_torch.eval.inference", "srgan_tpu_torch.eval.evaluation",
                 "srgan_tpu_torch.models.enhancer",
-                "srgan_tpu_torch.utils.torch_port"} <= names
+                "srgan_tpu_torch.utils.torch_port", "srgan_tpu_torch.models.vgg",
+                "srgan_tpu_torch.models.encoder",
+                "srgan_tpu_torch.training.encoder_train"} <= names
 
     def test_no_import_lines_of_jax(self):
         files = sorted((REPO / "srgan_tpu_torch").rglob("*.py"))

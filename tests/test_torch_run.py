@@ -257,13 +257,16 @@ class TestCLI:
                 "Trainingtraining_loss_curve_0.png"} <= names
         assert ckpt.load_model_config(str(results), "Training").compute_dtype == "bfloat16"
 
-    @pytest.mark.parametrize("flag,item", [
-        (["--profile-dir", "trace"], "item 11"),
-        (["--multihost"], "item 10"),
-        (["--pool-exec", "vmap"], "item 7"),
-        (["--perceptual", "0.1"], "perceptual prior"),
+    @pytest.mark.parametrize("flag,exc,item", [
+        (["--profile-dir", "trace"], NotImplementedError, "item 11"),
+        (["--multihost"], NotImplementedError, "item 10"),
+        (["--pool-exec", "vmap"], NotImplementedError, "item 7"),
+        (["--perceptual-encoder", "e.npz"], ValueError, "perceptual_weight"),
     ], ids=["profile_dir", "multihost", "pool_exec_vmap", "perceptual"])
-    def test_unported_flags_name_roadmap(self, tmp_path, flag, item):
-        with pytest.raises(NotImplementedError, match=item):
+    def test_unported_flags_name_roadmap(self, tmp_path, flag, exc, item):
+        """Each unported flag names its ROADMAP item. The perceptual prior
+        is ported: a feature prior given with --perceptual 0 raises the JAX
+        CLI's ValueError."""
+        with pytest.raises(exc, match=item):
             cli.main(["train", "--results-dir", str(tmp_path), "--device", "cpu",
                       *flag])

@@ -226,13 +226,18 @@ class TestLogging:
 
 
 class TestTrainer:
-    def test_unported_paths_name_roadmap(self):
-        for cfg in (
-            Config(pool=PoolConfig(num_generators=3, member_exec="vmap")),
-            Config(train=TrainConfig(perceptual_weight=0.1)),
-        ):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                Trainer(cfg, device="cpu")
+    def test_unported_paths_name_roadmap(self, tmp_path):
+        """The vmap pool executor still raises naming its item; the
+        perceptual term is ported and builds its extractor instead."""
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(Config(pool=PoolConfig(num_generators=3, member_exec="vmap")),
+                    device="cpu")
+        cfg = Config(model=ModelConfig(**SMALL),
+                     train=TrainConfig(perceptual_weight=0.1, vgg_layers=("conv1_2",),
+                                       results_dir=str(tmp_path)))
+        with pytest.warns(RuntimeWarning, match="RANDOM feature weights"):
+            trainer = Trainer(cfg, device="cpu")
+        assert [n for n, _ in trainer.extractor.named_children()] == ["conv_0", "conv_2"]
 
     @pytest.mark.parametrize("train,field", [
         (dict(stop_sync_every_batches=0), "stop_sync_every_batches"),
