@@ -118,6 +118,35 @@ Phases, each of which must pass (any failure exits non-zero):
      ms/step, img/s, peak memory, K1-K3 once a step and member, the
      extractor on HR once a batch and on SR once a member.
 
+  11. determinism (after phase 6): the deterministic mode that every entry
+     point turns on (``utils.platform.make_deterministic``): phase 10's
+     ``train-encoder`` subprocess run again in this process, archives and
+     losses bit-identical; the flagship bf16 pool of 3 with GAN once more
+     over 2 epochs of 3 steps, every network's params and Adam moments and
+     the losses bit-identical to phase 6's run; the mode's cost in ms/step
+     against the mode off (on, off, off, on) on that pool and, in phase 4,
+     on the bf16 pixel step;
+  12. multi-process, in this process: a one-rank NCCL group from torchrun's
+     variables; K1-K3 at the flagship loss shape through the group (the
+     fp64 totals all-gathered between each totals stage and its finalise)
+     bit-identical to the no-group path and within the kernel phase's bars
+     of their plain group form; the flagship bf16 pool of 3 with GAN under
+     the group for 2 epochs, bit-identical to phase 6's run, K1 and K2
+     counted through the group every launch. And in phase 7, ``train
+     --multihost`` as a subprocess (NCCL, world 1) for the same 2 epochs as
+     the run without it: params, g_loss and psnr bit-identical;
+  13. input: one flagship bf16 epoch with ``--salt-prob 0.001 --pepper-prob
+     0.001 --spot-size 3`` (counted: K1-K3 once a step) and the spot density
+     of an epoch's LR batches against its expectation (within 40 %);
+  14. tracing (after phase 7, on its folders): ``train --profile-dir``
+     through ``cli.main``, one flagship bf16 epoch of 2 steps; the trace
+     file names ``edge_stats_kernel``, ``loss_sums_kernel`` and
+     ``grad_kernel``;
+  15. serving (in phase 9): ``upscale-dir`` prints the codec that served
+     (native, or PIL with the native build's first error line) and its
+     img/s; ``upscale --dp`` (every visible card)
+     writes the plain path's output.
+
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. It exits non-zero without a result where CUDA is unavailable or the
 package is missing. The script imports nothing of JAX or ``srgan_tpu``.
@@ -156,12 +185,12 @@ FLAGSHIP_STEPS = 3  # counted steps an epoch of the flagship runs
 OPS_PER_ELEMENT = {"edge_stats": 28, "loss_sums": 57, "loss_grad": 75}
 LOSS_KERNEL_RE = re.compile(
     r"\b(edge_stats_kernel|edge_stats_finalize|loss_sums_kernel|loss_sums_finalize"
-    r"|grad_kernel)\b")
-# each wrapper's kernel and its finalise launch
+    r"|grad_kernel|partials_totals<[23]>)")
+# each wrapper's kernel, then its totals stage and finalise launches
 LOSS_KERNELS = {
-    "edge_stats": ("edge_stats_kernel", "edge_stats_finalize"),
-    "loss_sums": ("loss_sums_kernel", "loss_sums_finalize"),
-    "loss_grad": ("grad_kernel", None),
+    "edge_stats": ("edge_stats_kernel", "partials_totals<2>", "edge_stats_finalize"),
+    "loss_sums": ("loss_sums_kernel", "partials_totals<3>", "loss_sums_finalize"),
+    "loss_grad": ("grad_kernel",),
 }
 # device kernels by what they do, for the profile's summary; first match
 PROFILE_GROUPS = [(g, re.compile(rx, re.I)) for g, rx in (
@@ -388,10 +417,11 @@ def kernel_phase(rk, dev) -> dict:
         t_ops = n * OPS_PER_ELEMENT[name] / FP32_OPS_PER_S * 1e3
         rec["bound_ms"] = max(t_bytes, t_ops)
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        kern, fin = LOSS_KERNELS[name]
+        kern, *fin = LOSS_KERNELS[name]
         rec["kernel_device_ms"] = dev_ms[kern]
-        rec["finalize_device_ms"] = dev_ms[fin] if fin else None
-        rec["device_ms"] = dev_ms[kern] + (dev_ms[fin] if fin else 0.0)
+        # the totals stage and the finalise together
+        rec["finalize_device_ms"] = sum(dev_ms[f] for f in fin) if fin else None
+        rec["device_ms"] = dev_ms[kern] + sum(dev_ms[f] for f in fin)
         rec["gb_per_s"] = n_bytes / (rec["device_ms"] * 1e-3) / 1e9
         rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
         # the wrapper's host cost, as far as back-to-back calls show it
@@ -403,7 +433,7 @@ def kernel_phase(rk, dev) -> dict:
               f"{min(win_p):.4f}..{max(win_p):.4f}) "
               f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}); device ms a "
               f"launch {kern} {dev_ms[kern]:.4f}"
-              + (f" + {fin} {dev_ms[fin]:.4f}" if fin else "")
+              + "".join(f" + {f} {dev_ms[f]:.4f}" for f in fin)
               + f" = {rec['device_ms']:.4f}: {rec['gb_per_s']:.0f} GB/s, "
               f"{rec['bound_share']:.3f} of the bound "
               f"(by events {rec['bound_ms'] / rec['ms']:.3f}); host gap "
@@ -557,11 +587,13 @@ class Flagship:
     512x1024) on clips in the device cache, with a temporary results dir.
     ``n_gen`` generators; ``gan``: with the flagship discriminator (4
     stages, 64 filters) and ``p_gan_above=1.0``; ``steps`` an epoch;
-    ``train``: more ``TrainConfig`` fields (the perceptual term's)."""
+    ``train``: more ``TrainConfig`` fields (the perceptual term's);
+    ``data``: more ``DataConfig`` fields (salt and pepper)."""
 
     def __init__(self, dev, compute_dtype: str, batch: int, clips, results_dir: str,
                  layout: str = "default", n_gen: int = 1, gan: bool = False,
-                 steps: int = FLAGSHIP_STEPS, train: dict | None = None, tag: str = ""):
+                 steps: int = FLAGSHIP_STEPS, train: dict | None = None, tag: str = "",
+                 data: dict | None = None):
         from srgan_tpu_torch.config import (Config, DataConfig, DiscriminatorConfig,
                                             ModelConfig, PoolConfig, TrainConfig)
         from srgan_tpu_torch.data.dataset import ArrayDataset
@@ -577,7 +609,7 @@ class Flagship:
         cfg = Config(
             model=ModelConfig(compute_dtype=compute_dtype),
             discriminator=DiscriminatorConfig(compute_dtype=compute_dtype),
-            data=DataConfig(batch_size=batch, device_cache="on"),
+            data=DataConfig(batch_size=batch, device_cache="on", **(data or {})),
             pool=PoolConfig(num_generators=n_gen, **({"p_gan_above": 1.0} if gan else {})),
             train=TrainConfig(progress="off", score_max_batches=1,
                               results_dir=results_dir, use_gan=gan, **(train or {})),
@@ -647,7 +679,7 @@ class Flagship:
               f"{self.warm['g_loss']:.5f} -> {m['g_loss']:.5f}; peak memory "
               f"{peak / 2**30:.2f} GiB; launches {counts}; paths {paths}{gan}", flush=True)
         return {"counts": counts, "step_ms": step_ms, "peak_gib": peak / 2**30,
-                "p_loss": m["p_loss"]}
+                "p_loss": m["p_loss"], "metrics": m}
 
     def close(self):
         self.pipe.close()
@@ -677,6 +709,8 @@ def training_phase(rk, dev) -> dict:
                 if batch == 24 or compute_dtype == "float32":
                     profile_epoch(run.trainer, run.pipe, FLAGSHIP_STEPS, run.tag)
                     run.epochs += 1
+                if (compute_dtype, batch) == ("bfloat16", 12):
+                    _mode_cost(run, run.tag)
                 if compute_dtype == "float32":
                     val = TrainPipeline(run.trainer.cfg.data, ArrayDataset(val_clips),
                                         use_split=False, seed=1, augment=False)
@@ -727,7 +761,8 @@ def gan_training_phase(rk, dev) -> dict:
     """The GAN phase at the flagship size, batch 12: the pool of 3 on the
     stacked scan executor in bf16 (with a profiled epoch), then one
     generator on the fused GAN step in fp32; each a warm-up epoch and a
-    counted one, launch counts zeroed just before the counted epoch."""
+    counted one, launch counts zeroed just before the counted epoch. The
+    pool's state after its counted epoch is kept (``"state"``)."""
     clips = smooth_clips(dev, FLAGSHIP_STEPS * 12, 1)
     out = {}
     with tempfile.TemporaryDirectory() as results_dir:
@@ -738,7 +773,8 @@ def gan_training_phase(rk, dev) -> dict:
             run = Flagship(dev, cd, 12, clips, results_dir, n_gen=n_gen, gan=True)
             try:
                 out[name] = run.counted(rk)
-                if n_gen > 1:
+                if n_gen > 1:  # the determinism phase's reference run
+                    out[name]["state"] = _run_state(run)
                     profile_epoch(run.trainer, run.pipe, FLAGSHIP_STEPS, run.tag)
             finally:
                 run.close()
@@ -817,13 +853,27 @@ def entry_point_phase(rk, dev, root: str):
              os.path.join(root, "val"), "--batch-size", "12", "--bf16",
              "--checkpoint-every", "1", "--keep-best", "--validate-every", "1",
              "--results-dir", res, "--progress", "off"]
+    # the run and the same run with --multihost (one rank of an NCCL group
+    # joined from torchrun's variables), side by side on the card: their
+    # params must be equal
+    res_mh = os.path.join(root, "results_multihost")
+    argv_mh = [a if a != res else res_mh for a in flags]
+    here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "srgan_tpu_torch.cli", *flags, "--epochs", "2"],
-        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-        text=True, timeout=600,
-    )
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "srgan_tpu_torch.cli", *argv, "--epochs", "2", *extra],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for argv, extra, env in ((flags, [], None),
+                                 (argv_mh, ["--multihost"],
+                                  {**os.environ, **_torchrun_env(_free_port())}))]
+    try:
+        (out, err), (out_mh, err_mh) = (p.communicate(timeout=600) for p in procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
     first_s = time.perf_counter() - t0
+    proc = subprocess.CompletedProcess(procs[0].args, procs[0].returncode, out, err)
     print(proc.stdout, end="", flush=True)
     check(proc.returncode == 0,
           f"entry point: the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
@@ -831,6 +881,23 @@ def entry_point_phase(rk, dev, root: str):
     check(os.path.exists(os.path.join(res, "Trainingtraining_loss_curve_0.png")),
           "entry point: the CLI wrote no rating curve")
     epoch2 = ckpt.restore_generator_params(res, "Training")
+
+    check(procs[1].returncode == 0,
+          f"entry point --multihost: the CLI exited {procs[1].returncode}: {err_mh[-3000:]}")
+    mh = ckpt.restore_generator_params(res_mh, "Training")
+    check(mh.keys() == epoch2.keys() and all(torch.equal(mh[k], epoch2[k]) for k in mh),
+          "entry point --multihost: params differ from the run without --multihost")
+    with open(os.path.join(res, "Training_metrics.jsonl")) as f:
+        plain_recs = [json.loads(line) for line in f if line.strip()]
+    with open(os.path.join(res_mh, "Training_metrics.jsonl")) as f:
+        mh_recs = [json.loads(line) for line in f if line.strip()]
+    same_loss = [a["g_loss"] == b["g_loss"] and a["psnr"] == b["psnr"]
+                 for a, b in zip(plain_recs, mh_recs)]
+    check(len(mh_recs) == 2 and all(same_loss),
+          f"entry point --multihost: records {mh_recs} vs {plain_recs}")
+    print(f"entry point --multihost (NCCL, world 1) bf16 batch 12: CLI subprocess 2 epochs "
+          f"beside the run without it, both in {first_s:.1f} s; params bit-identical to "
+          f"the run without --multihost, g_loss and psnr of both epochs equal", flush=True)
 
     legs = (("resume", ["--epochs", "3", "--resume"], 1),
             ("gan pool", ["--epochs", "1", "--continue-training", "--gan",
@@ -895,7 +962,8 @@ def entry_point_phase(rk, dev, root: str):
           "entry point: the resumed epoch 3 left the params as they were")
     check(all(torch.isfinite(t).all() for t in epoch3.values()),
           "entry point: non-finite params after the resume")
-    print(f"entry point bf16 batch 12: CLI subprocess 2 epochs in {first_s:.1f} s, resume "
+    print(f"entry point bf16 batch 12: CLI subprocess 2 epochs in {first_s:.1f} s (beside "
+          f"the --multihost one), resume "
           f"to epoch 3 in {times['resume']:.1f} s, --continue-training --gan "
           f"--num-generators 3 in {times['gan pool']:.1f} s (phase "
           f"{time.perf_counter() - t_phase:.1f} s); psnr by epoch "
@@ -904,7 +972,7 @@ def entry_point_phase(rk, dev, root: str):
           f"{[(m['gan_updates'], m['pixel_updates']) for m in gan_rec['pool']]}; launches "
           f"{counted}; latest {os.path.basename(latest)}, best {os.path.basename(best)}, "
           f"gan pool {os.path.basename(post)}; artifacts {names}", flush=True)
-    return counted, res
+    return counted, res, flags
 
 
 P_WEIGHT = 0.1  # the flagship perceptual runs' --perceptual weight
@@ -1047,9 +1115,10 @@ def perceptual_training_phase(rk, dev, enc_path: str) -> dict:
     just before it): VGG19 at conv3_3 and conv4_3 in fp32 and bf16 (3 steps;
     a profiled epoch each, beside the extractor's passes timed alone on the
     device), the trained encoder prior of ``enc_path`` in fp32 and bf16 (3
-    steps), and the pool of 3 with GAN and VGG in bf16 (2 steps). K1-K3 once
-    a step and member; the extractor on HR once a batch, on SR once a
-    member. Returns each run's launch counts."""
+    steps; each with the deterministic mode's cost, mode on against off),
+    and the pool of 3 with GAN and VGG in bf16 (2 steps). K1-K3 once a step
+    and member; the extractor on HR once a batch, on SR once a member.
+    Returns each run's launch counts."""
     import warnings
 
     clips = smooth_clips(dev, FLAGSHIP_STEPS * 12, 1)
@@ -1106,6 +1175,10 @@ def perceptual_training_phase(rk, dev, enc_path: str) -> dict:
                       f"{rec['peak_gib']:.2f} GiB; extractor calls {calls}; p_loss "
                       f"{rec['p_loss']:.6f}{split}; run {time.perf_counter() - t0:.1f} s",
                       flush=True)
+                if prior == "encoder":
+                    # its stride-2 convs' input gradient is where cuDNN's
+                    # deterministic algorithms cost the most
+                    _mode_cost(run, run.tag)
             finally:
                 run.close()
                 del run
@@ -1146,6 +1219,22 @@ def perceptual_entry_phase(dev, root: str) -> str:
           f"train-encoder: archive holds {enc.meta()}")
     print(f"perceptual train-encoder (subprocess, 48 clips, 200 steps, batch 32, crop 96): "
           f"{json.dumps(rec)}; {enc_s:.1f} s with process start", flush=True)
+    # determinism: the same training again, in this process, gives the bits
+    # of the subprocess's run
+    from srgan_tpu_torch.training.encoder_train import train_contrastive_encoder
+
+    again = os.path.join(root, "encoder_again.npz")
+    t0 = time.perf_counter()
+    rec2 = train_contrastive_encoder(data, again, steps=200, verbose=False)
+    again_s = time.perf_counter() - t0
+    with np.load(enc_path) as a, np.load(again) as b:
+        same = a.files == b.files and all(np.array_equal(a[f], b[f]) for f in a.files)
+    keys = ("loss0", "lossN", "align", "unif")
+    check(same and all(rec[k] == rec2[k] for k in keys),
+          f"determinism: two train-encoder runs differ: {rec} vs {rec2}")
+    print(f"determinism train-encoder twice (the subprocess, then in this process, "
+          f"{again_s:.1f} s): archives bit-identical, losses {[rec[k] for k in keys]} both",
+          flush=True)
 
     res = os.path.join(root, "results_perceptual")
     t0 = time.perf_counter()
@@ -1395,6 +1484,24 @@ def serve_phase(rk, tk, dev, res: str) -> dict:
               f"in {dir_s:.1f} s as a subprocess ({35 / dir_s:.2f} img/s, process "
               f"start and model load included); {line.group(0) if line else '?'}",
               flush=True)
+        rate = re.search(r"\(([\d.]+) img/s\)", line.group(0)) if line else None
+        codec = re.search(r"; codec (.*)$", line.group(0)) if line else None
+        check(rate is not None and codec is not None,
+              f"serve upscale-dir: no rate or codec in {proc.stderr[-2000:]}")
+        print(f"serve upscale-dir codec: {codec.group(1)}: {rate.group(1)} img/s "
+              f"(upscale_directory's own wall)", flush=True)
+
+        # --dp: every visible card, one replica each; equal to the plain path
+        one = os.path.join(src, "img_00.png")
+        outs = {}
+        for tag, extra in (("plain", []), ("dp", ["--dp"])):
+            outs[tag] = os.path.join(root, f"{tag}.png")
+            _cli(["upscale", one, outs[tag], "--results-dir", res, *extra])
+        with Image.open(outs["plain"]) as a, Image.open(outs["dp"]) as b:
+            check(np.array_equal(np.asarray(a), np.asarray(b)),
+                  "serve upscale --dp differs from the plain path")
+        print(f"serve upscale --dp on {torch.cuda.device_count()} card(s): output equal to "
+              "the plain path", flush=True)
 
         # 6. eval through cli.main: the default quirks, then --bucketed on 3 sizes
         pairs = os.path.join(root, "pairs")
@@ -1715,6 +1822,275 @@ def tower_phase(dev) -> list:
     return out
 
 
+# ------------------- determinism, multi-process, input, tracing --
+
+
+def _set_deterministic(on: bool) -> None:
+    """The deterministic mode (``utils.platform.make_deterministic``) on or
+    off, for timing the mode against its absence; the program has no
+    switch."""
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on)
+
+
+def _run_state(run) -> list:
+    """Every tensor the run's next step reads: each member's params and Adam
+    moments, then D's, on the host."""
+    t = run.trainer
+    states = list(t.spool.state) if t.spool is not None else [m.state for m in t.pool.members]
+    if t.d_state is not None:
+        states.append(t.d_state)
+    return [x.detach().cpu() for st in states for x in (*st.params, *st.mu, *st.nu)]
+
+
+def _bit_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _mode_cost(run, tag: str) -> dict:
+    """ms/step of ``run``'s epochs with the deterministic mode on and off, in
+    turns (on, off, off, on), the mode left on."""
+    times = {True: [], False: []}
+    try:
+        for on in (True, False, False, True):
+            _set_deterministic(on)
+            times[on].append(run.epoch()[1] / run.steps * 1e3)
+    finally:
+        _set_deterministic(True)
+    on, off = statistics.mean(times[True]), statistics.mean(times[False])
+    print(f"determinism cost {tag}: ms/step mode on "
+          + " / ".join(f"{t:.2f}" for t in times[True]) + ", off "
+          + " / ".join(f"{t:.2f}" for t in times[False])
+          + f"; on - off {on - off:+.2f} ms/step ({(on / off - 1) * 100:+.2f} %)", flush=True)
+    return {"on_ms": times[True], "off_ms": times[False]}
+
+
+def determinism_phase(rk, dev, first: dict) -> dict:
+    """The deterministic mode on the card, which every entry point turns on
+    (``utils.platform.make_deterministic``; ``train-encoder`` twice: phase
+    10, ``perceptual_entry_phase``): the flagship bf16 pool of 3 with GAN
+    (D's strided convs and overlapping max pool in the backward) over 2
+    epochs of 3 steps, every network's params and Adam moments and the
+    epoch losses bit-identical to ``first``, the GAN phase's run of the
+    same config; the mode's cost in ms/step against the mode off on that
+    pool, in turns (phase 4 times it on the bf16 pixel step). Returns the
+    reference state and losses (the multi-process phase's) and the counted
+    epoch's launches."""
+    t_phase = time.perf_counter()
+    ref = {"state": first["state"],
+           "losses": {k: v for k, v in first["metrics"].items() if k.endswith("loss")}}
+    clips = smooth_clips(dev, FLAGSHIP_STEPS * 12, 1)
+    with tempfile.TemporaryDirectory() as results_dir:
+        torch.cuda.empty_cache()
+        run = Flagship(dev, "bfloat16", 12, clips, results_dir, n_gen=3, gan=True,
+                       tag=" determinism")
+        try:
+            rk.reset_launches()
+            m, _ = run.epoch()
+            counts = dict(rk.launches)
+            state = _run_state(run)
+            losses = {k: m[k] for k in ref["losses"]}
+            check(_bit_equal(state, ref["state"]) and losses == ref["losses"],
+                  f"determinism: two flagship bf16 pool-of-3 GAN runs differ: "
+                  f"{losses} vs {ref['losses']}")
+            print(f"determinism flagship bf16 pool 3 gan, 2 epochs of {FLAGSHIP_STEPS} "
+                  f"steps, again: params and Adam moments of 3 generators and D "
+                  f"bit-identical to phase 6's run ({len(state)} tensors), losses "
+                  f"{losses} both", flush=True)
+            _mode_cost(run, run.tag)
+        finally:
+            run.close()
+    print(f"determinism: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {**ref, "counts": counts}
+
+
+def _torchrun_env(port: int) -> dict:
+    """The variables torchrun sets, for one process on this card."""
+    return dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="1",
+                RANK="0", LOCAL_RANK="0")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def multihost_phase(rk, dev, reference: dict) -> dict:
+    """``--multihost``'s path in this process: a one-rank NCCL group joined
+    from torchrun's variables (``parallel.mesh.initialize_multihost``).
+    K1-K3 at the flagship loss shape through the totals path with the group
+    (an all_gather of the fp64 totals between each totals stage and its
+    finalise), bit for bit against the no-group path and, like the kernel
+    phase, against their plain versions (in the group's fp64 form on the
+    card: statistics and losses rel 1e-4, d/d sr 1e-3·max); then the
+    flagship bf16 pool of 3 with GAN under the group for 2 epochs, every
+    network's params and moments bit-identical to the determinism phase's
+    run without one, the counted epoch's launches (K1 and K2 through the
+    group each time). The group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from srgan_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    saved_env = dict(os.environ)
+    os.environ.update(_torchrun_env(_free_port()))
+    got_dev = mesh.initialize_multihost()
+    try:
+        group = mesh.default_group()
+        check(got_dev == torch.device("cuda", 0) and dist.get_backend(group) == "nccl"
+              and mesh.process_shard_info(group) == (1, 0),
+              f"multihost: device {got_dev}, backend {dist.get_backend(group)}")
+        hr, sr = loss_inputs(dev)
+        g = (torch.tensor(1.0, device=dev), torch.tensor(0.7, device=dev))
+
+        def run(grp):
+            stats = rk.edge_stats(hr, grp)
+            losses = rk.loss_sums(hr, sr, stats, grp)
+            return stats.clone(), *losses, rk.loss_grad(hr, sr, stats, *g)
+
+        alone, grouped = run(None), run(group)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(alone, grouped)),
+              "multihost: the world-1 group path differs from the no-group path")
+        hr64, sr64 = hr.double(), sr.double()
+        want = rk.edge_stats_plain(hr64, group)
+        e_p, tv_p = rk.loss_sums_plain(hr64, sr64, want, group)
+        d_p = rk.loss_grad_plain(hr64, sr64, want, g[0].double(), g[1].double())
+        st_err = float(((grouped[0].double() - want) / want).abs().max())
+        l_err = max(abs(float(grouped[1]) - float(e_p)) / abs(float(e_p)),
+                    abs(float(grouped[2]) - float(tv_p)) / abs(float(tv_p)))
+        d_err = float((grouped[3].double() - d_p).abs().max() / d_p.abs().max())
+        check(st_err <= 1e-4 and l_err <= 1e-4 and d_err <= 1e-3,
+              f"multihost: group path vs plain: stats {st_err:.2e}, losses {l_err:.2e}, "
+              f"dsr {d_err:.2e}")
+        print(f"multihost kernels at {tuple(hr.shape)}, one-rank NCCL group: stats, losses "
+              f"and d/d sr bit-identical to the no-group path; against the plain group "
+              f"form (fp64): stats rel {st_err:.2e}, losses rel {l_err:.2e}, dsr "
+              f"{d_err:.2e}*max", flush=True)
+
+        clips = smooth_clips(dev, FLAGSHIP_STEPS * 12, 1)
+        with tempfile.TemporaryDirectory() as results_dir:
+            torch.cuda.empty_cache()
+            run_g = Flagship(dev, "bfloat16", 12, clips, results_dir, n_gen=3, gan=True,
+                             tag=" multihost world 1")
+            try:
+                check(run_g.trainer.group is group, "multihost: the Trainer has no group")
+                rk.reset_launches()
+                m, dt = run_g.epoch()
+                counts, sums = dict(rk.launches), dict(rk.group_sums)
+                state = _run_state(run_g)
+            finally:
+                run_g.close()
+        want_n = FLAGSHIP_STEPS * 3
+        check(all(counts[k] == want_n for k in LOSS_KERNELS)
+              and all(v == want_n for v in sums.values()),
+              f"multihost: launches {counts}, group sums {sums}; expected {want_n}")
+        losses = {k: m[k] for k in reference["losses"]}
+        check(_bit_equal(state, reference["state"]) and losses == reference["losses"],
+              f"multihost: world-1 run differs from the run without a group: "
+              f"{losses} vs {reference['losses']}")
+        print(f"multihost flagship bf16 pool 3 gan, world 1: 2 epochs bit-identical to "
+              f"the run without a group (params, moments, losses); counted epoch "
+              f"{dt / FLAGSHIP_STEPS * 1e3:.2f} ms/step; launches {counts}, through the "
+              f"group {sums}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    finally:
+        dist.destroy_process_group()
+        os.environ.clear()
+        os.environ.update(saved_env)
+    return counts
+
+
+def _spot_expectation(h: int, w: int, s: int, p_salt: float, p_pepper: float) -> tuple:
+    """Expected fractions of LR pixels that show salt (1.0) and pepper (0.0)
+    under ``add_salt_pepper_from``: each pixel is covered by k valid seed
+    positions; a density u·p·scale with u ~ U(0, 1) covers it with
+    probability 1 − (1 − u·a)^k, a = p·scale, whose mean over u is
+    1 − (1 − (1 − a)^(k+1)) / ((k + 1)·a); pepper wins over salt."""
+    scale = h * w / ((h - s + 1) * (w - s + 1))
+    ys, xs = np.arange(h), np.arange(w)
+    ny = np.minimum(ys, h - s) - np.maximum(ys - s + 1, 0) + 1
+    nx = np.minimum(xs, w - s) - np.maximum(xs - s + 1, 0) + 1
+    k = (ny[:, None] * nx[None, :]).astype(np.float64)
+
+    def uncovered(p):
+        a = p * scale
+        return (1.0 - (1.0 - a) ** (k + 1)) / ((k + 1) * a)
+
+    no_salt, no_pepper = uncovered(p_salt), uncovered(p_pepper)
+    return float(((1 - no_salt) * no_pepper).mean()), float((1 - no_pepper).mean())
+
+
+def input_phase(rk, dev) -> dict:
+    """One flagship bf16 epoch with ``--salt-prob 0.001 --pepper-prob 0.001
+    --spot-size 3`` (a warm-up epoch, then a counted one: K1-K3 once a
+    step), and the spot density of a further epoch's LR batches (pixels of
+    exactly 1.0 and 0.0 in every channel) against its expectation: within
+    40 % (36 images, each with its own density U(0, p): the mean's relative
+    spread is ~10 %)."""
+    from srgan_tpu_torch.training.loop import _epoch_generator
+
+    t_phase = time.perf_counter()
+    sp = dict(salt_prob=0.001, pepper_prob=0.001, sp_spot_size=3)
+    clips = smooth_clips(dev, FLAGSHIP_STEPS * 12, 1)
+    with tempfile.TemporaryDirectory() as results_dir:
+        run = Flagship(dev, "bfloat16", 12, clips, results_dir, data=sp,
+                       tag=" salt 0.001 pepper 0.001 spot 3")
+        try:
+            rec = run.counted(rk)
+            salt = pepper = total = 0
+            gen = _epoch_generator(dev, 0, 9)
+            for _, lr in run.pipe.epoch(9, gen):
+                salt += int((lr == 1.0).all(-1).sum())
+                pepper += int((lr == 0.0).all(-1).sum())
+                total += lr.shape[0] * lr.shape[1] * lr.shape[2]
+                lr_hw = lr.shape[1:3]
+        finally:
+            run.close()
+    want = _spot_expectation(*lr_hw, 3, 0.001, 0.001)
+    got = (salt / total, pepper / total)
+    ratios = [g / w for g, w in zip(got, want)]
+    check(all(abs(r - 1) <= 0.4 for r in ratios),
+          f"input: spot density salt/pepper {got}, expected {want}")
+    print(f"input spots: LR {tuple(lr_hw)}, {total} pixels: salt {got[0]:.5f} (expected "
+          f"{want[0]:.5f}, x{ratios[0]:.3f}), pepper {got[1]:.5f} (expected {want[1]:.5f}, "
+          f"x{ratios[1]:.3f}); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rec
+
+
+TRACE_NAMES = ("edge_stats_kernel", "loss_sums_kernel", "grad_kernel")
+
+
+def trace_phase(rk, dev, flags: list, root: str) -> dict:
+    """``train --profile-dir`` through ``cli.main`` at the flagship size in
+    bf16, one epoch of 2 steps on the entry-point phase's folders: the trace
+    file exists and names K1, K2 and K3; their launches counted (once a
+    step)."""
+    from srgan_tpu_torch.utils.profiling import TRACE_FILE
+
+    prof, res = os.path.join(root, "trace"), os.path.join(root, "results_trace")
+    argv = [a if a != flags[flags.index("--results-dir") + 1] else res for a in flags]
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    _cli(argv + ["--epochs", "1", "--profile-dir", prof])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(rk.launches)
+    path = os.path.join(prof, TRACE_FILE)
+    check(os.path.exists(path), f"trace: no {path}")
+    with open(path) as f:
+        text = f.read()
+    named = {n: text.count(n) for n in TRACE_NAMES}
+    check(all(named.values()) and all(counts[k] == 2 for k in LOSS_KERNELS),
+          f"trace: kernel names in the trace {named}, launches {counts}")
+    print(f"trace: train --profile-dir, 1 epoch of 2 steps bf16, {dt:.1f} s with the "
+          f"profiler; {path} {len(text) / 2**20:.1f} MiB; kernel name occurrences {named}; "
+          f"launches {counts}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1748,8 +2124,12 @@ def main() -> int:
     gan_small_step_phase(dev)
     counts = training_phase(rk, dev)
     gan = gan_training_phase(rk, dev)
+    det = determinism_phase(rk, dev, gan["pool gan flagship"])
+    multihost = multihost_phase(rk, dev, det)
+    spots = input_phase(rk, dev)["counts"]
     with tempfile.TemporaryDirectory() as root:
-        entry, res = entry_point_phase(rk, dev, root)
+        entry, res, flags = entry_point_phase(rk, dev, root)
+        traced = trace_phase(rk, dev, flags, root)
         perceptual_small_phase(dev)
         enc_path = perceptual_entry_phase(dev, root)
         perceptual = perceptual_training_phase(rk, dev, enc_path)
@@ -1761,7 +2141,9 @@ def main() -> int:
     # counted entry-point leg, 3 steps of each one-generator perceptual run
     # and 2 of the perceptual pool of 3, and the serving phase (none)
     by_path = {"pixel fp32": counts, **{k: v["counts"] for k, v in gan.items()},
-               **{f"entry point {k}": v for k, v in entry.items()},
+               "determinism pool 3 gan": det["counts"], "multihost world 1": multihost,
+               "salt and pepper": spots,
+               **{f"entry point {k}": v for k, v in entry.items()}, "trace": traced,
                **{k: v["counts"] for k, v in perceptual.items()}, "serve": serve}
 
     line = []

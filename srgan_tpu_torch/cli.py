@@ -12,10 +12,14 @@ N > 1); ``--perceptual WEIGHT`` adds the perceptual term, its features from
 scores a paired LR/HR set (``eval/evaluation.py``; ``--perceptual-metric``
 adds the encoder distance), ``upscale`` one image (``--tile`` for the tiled
 path) and ``upscale-dir`` a folder (``eval/inference.py``);
-``--ensemble``, ``--tta`` and ``--ema`` select the serving mode. Flags whose
-feature is not ported raise naming their ROADMAP.md item: ``--pool-exec
-vmap`` (item 7), ``--profile-dir`` (item 11), ``--multihost`` and ``--dp``
-(item 10).
+``--ensemble``, ``--tta`` and ``--ema`` select the serving mode; ``--dp``
+serves on every visible CUDA device. ``train --multihost`` joins the
+process group ``torchrun`` describes (``MASTER_ADDR``, ``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``; NCCL on the card, gloo with
+``--device cpu``) and trains data-parallel, one rank a device;
+``--profile-dir`` writes a ``torch.profiler`` trace of the run there. The
+one flag whose feature is not ported raises naming its ROADMAP.md item:
+``--pool-exec vmap`` (item 7).
 """
 
 from __future__ import annotations
@@ -131,11 +135,12 @@ def _add_train(sub):
                    help="raise FloatingPointError at the first non-finite "
                         "step loss")
     p.add_argument("--profile-dir", default=None,
-                   help="trace the run into this directory (not ported "
-                        "yet: ROADMAP.md queue 1, item 11)")
+                   help="capture a torch.profiler trace of the run into "
+                        "this directory (trace.json)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process run (not ported yet: ROADMAP.md "
-                        "queue 1, item 10)")
+                   help="multi-process run: join the process group torchrun "
+                        "describes (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, "
+                        "RANK, LOCAL_RANK) and train data-parallel")
     p.add_argument("--reduce-metrics", action="store_true",
                    help="all-reduce the scalar epoch record across "
                         "processes (the identity on one process)")
@@ -150,8 +155,8 @@ _SERVE_MODES = (
               "composes with --ensemble"),
     ("--ema", "serve the EMA weights saved by an --ema-decay training run"),
 )
-_DP_HELP = ("shard inference batches over every visible device (not ported "
-            "yet: ROADMAP.md queue 1, item 10)")
+_DP_HELP = ("shard inference batches over every visible CUDA device "
+            "(data-parallel serving: one replica a device)")
 _DEVICE_HELP = "torch device to run on ('cpu' runs on the CPU)"
 
 
@@ -348,11 +353,6 @@ def main(argv=None):
         out = run_train_encoder(args)
         print(json.dumps(out))
         return out
-    if getattr(args, "dp", False):
-        raise NotImplementedError(
-            "--dp: data-parallel serving is not ported yet (ROADMAP.md, "
-            "queue 1, item 10: parallelism)"
-        )
     if args.cmd == "eval":
         from srgan_tpu_torch.eval.evaluation import evaluate_model
 
@@ -376,17 +376,18 @@ def main(argv=None):
         from srgan_tpu_torch.eval.inference import Upscaler
         from srgan_tpu_torch.training.checkpoint import latest_ckpt_dir
 
+        devices = _dp_devices(args)
         if latest_ckpt_dir(args.results_dir, args.prefix) is not None:
             up = Upscaler.from_checkpoint(
                 args.results_dir, args.prefix, enhance_output=args.enhance,
                 ensemble=args.ensemble, tta=args.tta, ema=args.ema,
-                device=args.device,
+                device=args.device, devices=devices,
             )
         else:
             print("warning: no checkpoint found, using random weights",
                   file=sys.stderr)
             up = Upscaler.random_init(enhance_output=args.enhance,
-                                      device=args.device)
+                                      device=args.device, devices=devices)
         if args.tile:
             from srgan_tpu_torch.utils.image_io import load_image, save_image
 
@@ -415,38 +416,58 @@ def main(argv=None):
         tta=args.tta,
         ema=args.ema,
         device=args.device,
+        devices=_dp_devices(args),
     )
     print(f"upscaled {n} images into {args.output_dir}")
     return n
 
 
+def _dp_devices(args):
+    """``--dp``: every visible CUDA device (the one CPU with ``--device
+    cpu``); None without it."""
+    if not args.dp:
+        return None
+    import torch
+
+    from srgan_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(args.device)
+    if dev.type != "cuda":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def _train(args):
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile-dir: tracing is not ported yet (ROADMAP.md, queue 1, "
-            "item 11: CLI and utilities)"
-        )
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: multi-process training is not ported yet "
-            "(ROADMAP.md, queue 1, item 10: parallelism)"
-        )
     if args.pool_exec == "vmap":
         raise NotImplementedError(
             "--pool-exec vmap: the vmap pool executor is not ported yet "
             "(ROADMAP.md, queue 1, item 7: generator pool); scan computes "
             "the same updates"
         )
+    import contextlib
+
     import torch
 
     from srgan_tpu_torch.training.loop import Trainer
 
     cfg = config_from_args(args)
+    device = args.device
+    if args.multihost:
+        from srgan_tpu_torch.parallel.mesh import initialize_multihost
+
+        device = initialize_multihost(device)
+    if args.profile_dir:
+        from srgan_tpu_torch.utils.profiling import trace
+
+        ctx = trace(args.profile_dir)
+    else:
+        ctx = contextlib.nullcontext()
     try:
-        return Trainer(cfg, device=args.device).train(
-            continue_training=args.continue_training,
-            resume=args.resume,
-        )
+        with ctx:
+            return Trainer(cfg, device=device).train(
+                continue_training=args.continue_training,
+                resume=args.resume,
+            )
     except torch.cuda.OutOfMemoryError:
         hints = [f"--batch-size lower than {cfg.data.batch_size}"]
         if cfg.data.device_cache != "off":
@@ -461,6 +482,9 @@ def _train(args):
             file=sys.stderr,
         )
         raise
+    finally:
+        if args.multihost:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -6,10 +6,12 @@
 //
 //   K1 edge_stats_kernel  <- _edge_stats_kernel (:114)   Sobel +-5 edge map of
 //      hr, max(|Kx*hr|, |Ky*hr|), zero padding; per-block sums of e and e^2.
-//      edge_stats_finalize turns them into the mean and the Bessel std.
+//      partials_totals<2> sums them, edge_stats_finalize turns the totals
+//      into the mean and the Bessel std.
 //   K2 loss_sums_kernel   <- _loss_sums_kernel  (:144)   recomputes e, maps it
 //      to clip((e-mean)/std*0.2+1, 0, 2); per-block sums of |hr-sr|*e, e and
-//      |DIFF*sr|*(1-e). loss_sums_finalize gives edge_loss and relu(tv mean).
+//      |DIFF*sr|*(1-e). partials_totals<3> sums them, loss_sums_finalize
+//      gives edge_loss and relu(tv mean).
 //   K3 grad_kernel        <- _grad_kernel       (:188)   d loss / d sr =
 //      -sign(hr-sr)*e*c_edge + DIFF (x) (sign(DIFF*sr)*(1-e))*c_tv; hr gets
 //      no gradient.
@@ -73,10 +75,15 @@
 //     points refuse the vector path on misaligned input.
 // Sums (K1, K2): each lane adds its row's fp32 sums to fp64 accumulators
 // every row; then a fixed-order shuffle tree, one shared pass over the
-// block's warps, and one partial a block; a one-block finalise launch sums
-// the ~530 partials in a fixed order. No float atomics: two calls give the
-// same bits. The scalars stay on the device (no host sync); K3 reads c_edge
-// and c_tv from the incoming gradients in device memory.
+// block's warps, and one partial a block; a one-block totals launch sums
+// the ~530 partials in a fixed order into fp64 totals (and the count), and a
+// one-thread finalise launch turns totals into the scalars. Training across
+// processes sums the ranks' totals between the two (an all_gather, then a
+// sum in rank order), so the statistics and losses are the global batch's;
+// one process finalises its own. No float atomics: two calls give the same
+// bits. The scalars stay on the device (no host sync); K3 reads c_edge and
+// c_tv from the incoming gradients and the count from stats, in device
+// memory.
 //
 // Plain C interface for ctypes (srgan_tpu_torch/ops/cuda/recon_loss_kernel.py).
 // Every entry point returns cudaGetLastError() after its launches.
@@ -418,21 +425,36 @@ edge_stats_kernel(const float* __restrict__ hr, int B, int H, int W, int run,
   store_partials<2>(partials, v);
 }
 
-// stats = [mean, std, sum(e_normalized), tv mean]; K1 fills the first two
-// and zeroes the rest.
+// The totals stage of K1 and K2: the block partials summed in a fixed order
+// into K doubles, and the element count after them. A process group sums the
+// ranks' totals (fp64, in rank order) between this stage and the finalise.
+template <int K>
 __global__ void __launch_bounds__(kThreads)
-edge_stats_finalize(const double* __restrict__ partials, int n_blocks,
-                    double count, float* __restrict__ stats) {
-  double v[2];
-  sum_partials<2>(partials, n_blocks, v);
+partials_totals(const double* __restrict__ partials, int n_blocks, double count,
+                double* __restrict__ totals) {
+  double v[K];
+  sum_partials<K>(partials, n_blocks, v);
   if (threadIdx.x == 0) {
-    const double mean = v[0] / count;
-    const double var = (v[1] - count * mean * mean) / (count - 1.0);
-    stats[0] = (float)mean;
-    stats[1] = (float)sqrt(fmax(var, 0.0));
-    stats[2] = 0.f;
-    stats[3] = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) totals[k] = v[k];
+    totals[K] = count;
   }
+}
+
+// stats = [mean, std, sum(e_normalized), tv mean, count]; K1's finalise fills
+// mean, std and count from its totals [sum e, sum e^2, count] and zeroes the
+// rest. The finalises run on one thread of a one-warp launch.
+__global__ void edge_stats_finalize(const double* __restrict__ totals,
+                                    float* __restrict__ stats) {
+  if (threadIdx.x != 0) return;
+  const double count = totals[2];
+  const double mean = totals[0] / count;
+  const double var = (totals[1] - count * mean * mean) / (count - 1.0);
+  stats[0] = (float)mean;
+  stats[1] = (float)sqrt(fmax(var, 0.0));
+  stats[2] = 0.f;
+  stats[3] = 0.f;
+  stats[4] = (float)count;
 }
 
 // ---------------------------------------------------------------- K2 ----
@@ -492,19 +514,17 @@ loss_sums_kernel(const float* __restrict__ hr, const float* __restrict__ sr,
   store_partials<3>(partials, v);
 }
 
-__global__ void __launch_bounds__(kThreads)
-loss_sums_finalize(const double* __restrict__ partials, int n_blocks,
-                   double count, float* __restrict__ stats,
-                   float* __restrict__ edge_loss, float* __restrict__ tv_loss) {
-  double v[3];
-  sum_partials<3>(partials, n_blocks, v);
-  if (threadIdx.x == 0) {
-    const double tv_mean = v[2] / count;
-    stats[2] = (float)v[1];
-    stats[3] = (float)tv_mean;
-    *edge_loss = (float)(v[0] / v[1]);
-    *tv_loss = (float)fmax(tv_mean, 0.0);
-  }
+// From K2's totals [sum |hr-sr|*e, sum e, sum tv, count].
+__global__ void loss_sums_finalize(const double* __restrict__ totals,
+                                   float* __restrict__ stats,
+                                   float* __restrict__ edge_loss,
+                                   float* __restrict__ tv_loss) {
+  if (threadIdx.x != 0) return;
+  const double tv_mean = totals[2] / totals[3];
+  stats[2] = (float)totals[1];
+  stats[3] = (float)tv_mean;
+  *edge_loss = (float)(totals[0] / totals[1]);
+  *tv_loss = (float)fmax(tv_mean, 0.0);
 }
 
 // ---------------------------------------------------------------- K3 ----
@@ -512,7 +532,7 @@ loss_sums_finalize(const double* __restrict__ partials, int n_blocks,
 template <int C, bool VEC>
 __global__ void __launch_bounds__(kBandThreads, kBlocksPerSm)
 grad_kernel(const float* __restrict__ hr, const float* __restrict__ sr,
-            int B, int H, int W, int run, int bands, float count,
+            int B, int H, int W, int run, int bands,
             const float* __restrict__ stats, const float* __restrict__ g_edge,
             const float* __restrict__ g_tv, float* __restrict__ dsr) {
   constexpr int kOut = 32 - 2 * kGradHalo;
@@ -520,7 +540,7 @@ grad_kernel(const float* __restrict__ hr, const float* __restrict__ sr,
   const int rw = W * C;
   const float mean = stats[0], scale = 0.2f / stats[1];
   const float c_edge = g_edge[0] / stats[2];
-  const float c_tv = stats[3] > 0.f ? g_tv[0] / count : 0.f;  // relu gate
+  const float c_tv = stats[3] > 0.f ? g_tv[0] / stats[4] : 0.f;  // relu gate
   for_each_stretch(B, H, run, bands, [&](int band, int b, int y0, int y1) {
     const int q = band * kOut - kGradHalo + lane;
     bool in_row[4], own[4];
@@ -629,10 +649,11 @@ const char* recon_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// vec: 1 for the float4 path (refused unless vector_rows), 0 for scalar
-// loads; the partials buffer holds recon_stats_blocks * 2 doubles.
+// K1 and its totals stage: totals = [sum e, sum e^2, count]. vec: 1 for the
+// float4 path (refused unless vector_rows), 0 for scalar loads; the partials
+// buffer holds recon_stats_blocks * 2 doubles.
 int recon_edge_stats(const float* hr, int B, int H, int W, int C, int vec,
-                     double* partials, float* stats, cudaStream_t stream) {
+                     double* partials, double* totals, cudaStream_t stream) {
   if (vec && !vector_rows(W, C, {hr})) return (int)cudaErrorInvalidValue;
   const double count = (double)B * H * W * C;
   return with_channels(B, H, W, C, [&](auto c) {
@@ -641,16 +662,24 @@ int recon_edge_stats(const float* hr, int B, int H, int W, int C, int vec,
     auto kernel = vec ? edge_stats_kernel<kC, true> : edge_stats_kernel<kC, false>;
     kernel<<<runs.blocks, kBandThreads, 0, stream>>>(hr, B, H, W, runs.rows,
                                                      runs.bands, partials);
-    edge_stats_finalize<<<1, kThreads, 0, stream>>>(partials, runs.blocks, count,
-                                                    stats);
+    partials_totals<2><<<1, kThreads, 0, stream>>>(partials, runs.blocks, count,
+                                                   totals);
   });
 }
 
-// vec: 1 for the float4 path (refused unless vector_rows), 0 for scalar
-// loads; the partials buffer holds recon_sums_blocks * 3 doubles.
+// K1's finalise: stats (5 floats) from totals, this rank's or the group's.
+int recon_edge_stats_finalize(const double* totals, float* stats,
+                              cudaStream_t stream) {
+  edge_stats_finalize<<<1, 32, 0, stream>>>(totals, stats);
+  return (int)cudaGetLastError();
+}
+
+// K2 and its totals stage: totals = [sum |hr-sr|*e, sum e, sum tv, count].
+// vec as for recon_edge_stats; the partials buffer holds recon_sums_blocks *
+// 3 doubles.
 int recon_loss_sums(const float* hr, const float* sr, int B, int H, int W,
-                    int C, int vec, double* partials, float* stats,
-                    float* edge_loss, float* tv_loss, cudaStream_t stream) {
+                    int C, int vec, double* partials, const float* stats,
+                    double* totals, cudaStream_t stream) {
   if (vec && !vector_rows(W, C, {hr, sr})) return (int)cudaErrorInvalidValue;
   const double count = (double)B * H * W * C;
   return with_channels(B, H, W, C, [&](auto c) {
@@ -659,23 +688,30 @@ int recon_loss_sums(const float* hr, const float* sr, int B, int H, int W,
     auto kernel = vec ? loss_sums_kernel<kC, true> : loss_sums_kernel<kC, false>;
     kernel<<<runs.blocks, kBandThreads, 0, stream>>>(
         hr, sr, B, H, W, runs.rows, runs.bands, stats, partials);
-    loss_sums_finalize<<<1, kThreads, 0, stream>>>(
-        partials, runs.blocks, count, stats, edge_loss, tv_loss);
+    partials_totals<3><<<1, kThreads, 0, stream>>>(partials, runs.blocks, count,
+                                                   totals);
   });
 }
 
+// K2's finalise: edge_loss, tv_loss and stats[2:4] from totals.
+int recon_loss_sums_finalize(const double* totals, float* stats,
+                             float* edge_loss, float* tv_loss,
+                             cudaStream_t stream) {
+  loss_sums_finalize<<<1, 32, 0, stream>>>(totals, stats, edge_loss, tv_loss);
+  return (int)cudaGetLastError();
+}
+
+// K3; the count of c_tv is stats[4], the group's where the stats are.
 int recon_loss_grad(const float* hr, const float* sr, int B, int H, int W,
                     int C, int vec, const float* stats, const float* g_edge,
                     const float* g_tv, float* dsr, cudaStream_t stream) {
   if (vec && !vector_rows(W, C, {hr, sr, dsr})) return (int)cudaErrorInvalidValue;
-  const float count = (float)((double)B * H * W * C);
   return with_channels(B, H, W, C, [&](auto c) {
     constexpr int kC = decltype(c)::value;
     const Runs runs = band_runs(B, H, W, kC, kGradHalo, kBlocksPerSm);
     auto kernel = vec ? grad_kernel<kC, true> : grad_kernel<kC, false>;
     kernel<<<runs.blocks, kBandThreads, 0, stream>>>(
-        hr, sr, B, H, W, runs.rows, runs.bands, count, stats, g_edge, g_tv,
-        dsr);
+        hr, sr, B, H, W, runs.rows, runs.bands, stats, g_edge, g_tv, dsr);
   });
 }
 

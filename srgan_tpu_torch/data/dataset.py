@@ -2,9 +2,11 @@
 the counterpart of ``srgan_tpu/data/dataset.py``.
 
 The host decodes and resizes each image to the canonical HR clip size with
-PIL's bicubic filter, as uint8; the LR degradation runs batched on the
-device (``ops.resize``). PIL is imported only when an image is decoded, so
-the module imports where PIL is missing. A dataset is anything with
+PIL's bicubic filter, as uint8, or with the native C++ codec
+(``srgan_tpu_torch.native``, PIL-parity resampling, GIL-free) where its
+library builds; the LR degradation runs batched on the device
+(``ops.resize``). PIL is imported only when an image is decoded, so the
+module imports where PIL is missing. A dataset is anything with
 ``hr_size``, ``__len__`` and ``load_u8(idx)`` (HWC uint8, or None for a
 corrupt file): ``ImageFolderDataset`` reads a folder, ``ArrayDataset``
 serves clips already in memory. ``PairedImageDataset`` pairs two folders
@@ -38,10 +40,23 @@ def load_image_rgb(path: str) -> Optional[np.ndarray]:
         return None
 
 
+def native_available() -> bool:
+    """Whether the native codec's library is built (building it once a
+    process where it is missing)."""
+    from srgan_tpu_torch import native
+
+    return native.available()
+
+
 def load_hr_clip_u8(path: str, hr_size: Tuple[int, int]) -> Optional[np.ndarray]:
     """Decode + PIL bicubic resize to (height, width), HWC uint8 (reference
     ``normalize_img_size``, ``src/transformers.py:79-82``); None on
-    corrupt/unreadable files."""
+    corrupt/unreadable files. Through the native codec where it is built,
+    else PIL."""
+    if native_available():
+        from srgan_tpu_torch import native
+
+        return native.load_image_u8(path, hr_size[0], hr_size[1])
     from PIL import Image, UnidentifiedImageError
 
     try:

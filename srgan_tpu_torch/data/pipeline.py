@@ -1,17 +1,21 @@
 """Batched host→device input pipeline, the counterpart of
-``srgan_tpu/data/pipeline.py`` for one process:
+``srgan_tpu/data/pipeline.py``:
 
-  - PIL decode + bicubic resize to canonical HR clips as uint8 on a thread
-    pool (``HostBatcher``);
-  - per-epoch reshuffled sampling with the same numpy RNG as the JAX
-    package, so the index order is identical (``EpochSampler``);
+  - decode + bicubic resize to canonical HR clips as uint8 (``HostBatcher``):
+    one call into the native C++ codec a batch, on its threads with the GIL
+    released, where the codec builds and the dataset is a folder; else PIL
+    on a thread pool;
+  - per-epoch reshuffled, sharded sampling with the same numpy RNG as the
+    JAX package, so the index order is identical (``EpochSampler``): each
+    process of a multi-process run keeps its strided slice;
   - a device-resident dataset cache (``DataConfig.device_cache``): decode
     once, keep the uint8 dataset on the card, and gather every batch there
     — no image bytes cross the host link per step;
   - a streaming path that copies each uint8 batch from pinned memory with
     ``prefetch_depth`` batches in flight;
   - the /255 conversion and LR degradation on the device (``ops.resize``),
-    with randomness from a ``torch.Generator`` the caller passes.
+    with randomness from a ``torch.Generator`` the caller passes, drawn for
+    the global batch of a multi-process run (``shard``).
 
 Batches have a static shape (drop-remainder). The constructor takes a
 folder or a ready dataset object (``data.dataset``).
@@ -28,39 +32,68 @@ import numpy as np
 import torch
 
 from srgan_tpu_torch.config import DataConfig
-from srgan_tpu_torch.data.dataset import ImageFolderDataset, split_indices
+from srgan_tpu_torch.data.dataset import (
+    ImageFolderDataset,
+    native_available,
+    split_indices,
+)
 from srgan_tpu_torch.ops.resize import gather_prepare_batch, prepare_batch
 from srgan_tpu_torch.utils.platform import resolve_device
 
 
 class EpochSampler:
-    """Per-epoch reshuffled index sampler (``DistributedSampler(shuffle=
-    True)`` + ``set_epoch`` on one process): every epoch draws a
-    permutation seeded by (seed, epoch), the JAX package's numpy RNG."""
+    """Per-epoch reshuffled, sharded index sampler (``DistributedSampler(
+    shuffle=True)`` + ``set_epoch``, ``src/train.py:90-103``): every epoch
+    draws a permutation seeded by (seed, epoch), the JAX package's numpy
+    RNG, the same on every rank, and rank ``shard_index`` keeps its strided
+    slice of it."""
 
-    def __init__(self, indices: Sequence[int], *, seed: int = 0):
+    def __init__(self, indices: Sequence[int], *, num_shards: int = 1,
+                 shard_index: int = 0, seed: int = 0):
         self.indices = np.asarray(indices)
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.seed = seed
 
     def epoch_indices(self, epoch: int) -> np.ndarray:
         perm = np.random.default_rng((self.seed, epoch)).permutation(
             len(self.indices)
         )
-        return self.indices[perm]
+        shuffled = self.indices[perm]
+        if self.num_shards == 1:
+            return shuffled
+        # equal length on every rank: the steps are collective, and a rank
+        # running one more batch would deadlock the others, so the shards
+        # truncate to the common floor (DistributedSampler pads instead)
+        per_shard = len(shuffled) // self.num_shards
+        return shuffled[self.shard_index :: self.num_shards][:per_shard]
 
 
 class HostBatcher:
-    """Decode + batch assembly of HR clips (NHWC uint8 numpy) on a pool of
-    ``num_workers`` threads."""
+    """Decode + batch assembly of HR clips (NHWC uint8 numpy).
+
+    Fast path, for a dataset of files (one with ``path``): one call into the
+    native C++ codec a batch, decode and PIL-parity resize on
+    ``num_workers`` C++ threads with the GIL released
+    (``srgan_tpu_torch/native/loader.cpp``). Otherwise a pool of
+    ``num_workers`` Python threads over the dataset's ``load_u8`` (PIL)."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4):
         self.dataset = dataset
         self.batch_size = batch_size
-        self.pool = futures.ThreadPoolExecutor(max_workers=max(1, num_workers))
+        self.num_workers = max(1, num_workers)
+        self.native = hasattr(dataset, "path") and native_available()
+        self.pool = (None if self.native
+                     else futures.ThreadPoolExecutor(max_workers=self.num_workers))
 
     def decode_many(self, indices) -> Tuple[np.ndarray, np.ndarray]:
         """Decode any number of images → (uint8 array, ok mask)."""
         h, w = self.dataset.hr_size
+        if self.native:
+            from srgan_tpu_torch import native
+
+            paths = [self.dataset.path(int(i)) for i in indices]
+            return native.load_batch_u8(paths, h, w, self.num_workers)
         out = np.zeros((len(indices), h, w, 3), np.uint8)
         ok = np.zeros(len(indices), bool)
 
@@ -98,7 +131,8 @@ class HostBatcher:
             yield batch
 
     def close(self):
-        self.pool.shutdown(wait=False)
+        if self.pool is not None:
+            self.pool.shutdown(wait=False)
 
 
 def _device_prefetch(
@@ -142,6 +176,8 @@ class TrainPipeline:
         data,
         *,
         use_split: bool = True,
+        num_shards: int = 1,
+        shard_index: int = 0,
         seed: int = 0,
         device=None,
         cache_budget: "DeviceCacheBudget | None" = None,
@@ -166,7 +202,8 @@ class TrainPipeline:
             )
         else:
             train_idx = np.arange(len(self.dataset))
-        self.sampler = EpochSampler(train_idx, seed=seed)
+        self.sampler = EpochSampler(train_idx, num_shards=num_shards,
+                                    shard_index=shard_index, seed=seed)
         self.batcher = HostBatcher(self.dataset, cfg.batch_size, cfg.num_workers)
         self.cache_budget = cache_budget
         self._cache_decision = None   # memoized _cache_wanted (one reserve)
@@ -179,10 +216,12 @@ class TrainPipeline:
             factor=c.upscale_factor, noise_std_max=c.noise_std_max,
             salt_prob=c.salt_prob, pepper_prob=c.pepper_prob,
             spot_size=c.sp_spot_size, augment_flips=self.augment,
+            shard=(self.sampler.shard_index, self.sampler.num_shards),
         )
 
     def steps_per_epoch(self) -> int:
-        return len(self.sampler.indices) // self.cfg.batch_size
+        per_shard = len(self.sampler.indices) // self.sampler.num_shards
+        return per_shard // self.cfg.batch_size
 
     def _cache_wanted(self) -> bool:
         # decided once: with a shared budget the decision reserves bytes
@@ -204,6 +243,9 @@ class TrainPipeline:
     def _ensure_device_cache(self) -> torch.Tensor:
         if self._device_dataset is not None:
             return self._device_dataset
+        # the whole split, on every rank: each epoch deals it out across
+        # the ranks anew, so each caches all of it (as JAX replicates the
+        # cache over its mesh), under the same budget
         cache_idx = np.asarray(self.sampler.indices)
         batch, ok = self.batcher.decode_many(cache_idx)
         rows = batch if ok.all() else batch[ok]

@@ -9,15 +9,17 @@ Usage:
     up.upscale_file("in.jpg", "out.png")     # file → file
 
 Every entry point runs on the card unless given ``device="cpu"``, and
-turns TF32 off (``utils.platform.disable_tf32``): a serving process builds
-no ``Trainer``, and an fp32 model must run its convs in full fp32, as the
-JAX package does. Not ported: the data-parallel ``mesh=`` serving
-(ROADMAP.md, queue 1, item 10) and the native C++ codec of
-``upscale_directory`` (item 5); the port encodes and decodes with PIL.
+turns TF32 off and deterministic algorithms on (``utils.platform``): a
+serving process builds no ``Trainer``, and an fp32 model must run its convs
+in full fp32, as the JAX package does. ``devices=[...]`` (``--dp``) serves
+data-parallel, one replica a device, the counterpart of JAX's ``mesh=``.
+``upscale_directory`` decodes and encodes with the native C++ codec where
+it builds (``srgan_tpu_torch.native``), else with PIL.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import sys
 import time
@@ -39,7 +41,11 @@ from srgan_tpu_torch.training.steps import (
     infer_step_u8,
 )
 from srgan_tpu_torch.utils.image_io import load_image, save_image
-from srgan_tpu_torch.utils.platform import disable_tf32, resolve_device
+from srgan_tpu_torch.utils.platform import (
+    disable_tf32,
+    make_deterministic,
+    resolve_device,
+)
 
 
 def to_float01(image: np.ndarray) -> np.ndarray:
@@ -60,9 +66,10 @@ def to_float01(image: np.ndarray) -> np.ndarray:
 
 def _serving_device(device) -> torch.device:
     """The serving entry points' device (``None`` → the card), with TF32
-    off."""
+    off and deterministic algorithms on."""
     dev = resolve_device(device)
     disable_tf32()
+    make_deterministic()
     return dev
 
 
@@ -78,6 +85,7 @@ class Upscaler:
         ensemble: bool = False,
         tta: bool = False,
         device=None,
+        devices: Optional[Sequence] = None,
     ):
         """``model_or_models``: one ``SRResNet``, or with ``ensemble=True``
         the pool's members (same architecture), whose member-MEAN SR every
@@ -86,7 +94,18 @@ class Upscaler:
         work at inference.
 
         ``tta=True``: x8 dihedral self-ensemble (``infer_step_tta``),
-        composable with ``ensemble`` (8N forwards)."""
+        composable with ``ensemble`` (8N forwards).
+
+        ``devices``: data-parallel serving (``--dp``, JAX's ``mesh=``): one
+        replica of the weights on each device, and every batch padded to a
+        multiple of the device count with copies of its first image, split
+        in order, run on each device, and joined back in order on the first
+        (padding dropped). ``device`` is then ignored; without ``devices``,
+        one device."""
+        if devices is not None:
+            if not devices:
+                raise ValueError("devices= needs at least one device")
+            device = devices[0]
         self.device = _serving_device(device)
         members = (list(model_or_models)
                    if isinstance(model_or_models, (list, tuple))
@@ -100,6 +119,12 @@ class Upscaler:
         self.enhance_output = enhance_output
         self.ensemble = ensemble
         self.tta = tta
+        self.devices = [self.device] + [
+            _serving_device(d) for d in (devices or [])[1:]]
+        # member lists, one a device; the first is self.members
+        self.replicas = [self.members] + [
+            [copy.deepcopy(m).to(d).eval() for m in self.members]
+            for d in self.devices[1:]]
 
     @classmethod
     def random_init(cls, cfg: Optional[ModelConfig] = None, seed: int = 0, **kw):
@@ -170,15 +195,37 @@ class Upscaler:
             x = torch.from_numpy(to_float01(arr)).to(self.device)
         return (x[None] if arr.ndim == 3 else x), arr.ndim == 3
 
+    def _local(self, members, x: torch.Tensor, u8: bool) -> torch.Tensor:
+        """One device's SR of ``x`` with its ``members``, in the upscaler's
+        mode: float32 unclamped without enhance, or uint8 with it."""
+        model = members if self.ensemble else members[0]
+        if self.tta:
+            if u8:
+                return infer_step_tta_u8(model, x, enhance_out=self.enhance_output,
+                                         ensemble=self.ensemble)
+            return infer_step_tta(model, x, ensemble=self.ensemble)
+        if self.ensemble:
+            return (infer_step_ensemble_u8(members, x, self.enhance_output) if u8
+                    else infer_step_ensemble(members, x))
+        return infer_step_u8(model, x, self.enhance_output) if u8 else infer_step(model, x)
+
+    def _run(self, x: torch.Tensor, u8: bool) -> torch.Tensor:
+        if len(self.devices) == 1:
+            return self._local(self.members, x, u8)
+        n, k = x.shape[0], len(self.devices)
+        pad = (-n) % k
+        if pad:  # an equal share for every device
+            x = torch.cat([x, x[:1].expand(pad, *x.shape[1:])])
+        # each device's share is queued before any result is fetched, so the
+        # devices run side by side
+        outs = [self._local(members, part.to(d, non_blocking=True), u8)
+                for members, part, d in zip(self.replicas, x.chunk(k), self.devices)]
+        return torch.cat([o.to(self.device) for o in outs])[:n]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC float batch on the device → SR float32, unclamped, in the
         upscaler's mode (plain, ensemble and/or TTA); no enhance."""
-        if self.tta:
-            return infer_step_tta(self.members if self.ensemble else self.model,
-                                  x, ensemble=self.ensemble)
-        if self.ensemble:
-            return infer_step_ensemble(self.members, x)
-        return infer_step(self.model, x)
+        return self._run(x, u8=False)
 
     @torch.no_grad()
     def upscale(self, image: np.ndarray) -> np.ndarray:
@@ -196,16 +243,7 @@ class Upscaler:
         (``steps.infer_step_u8``): a quarter of the bytes to fetch, and
         bit-identical to ``array_to_image(self.upscale(x))``'s pixels."""
         x, single = self._batch(image)
-        if self.tta:
-            out = infer_step_tta_u8(
-                self.members if self.ensemble else self.model, x,
-                enhance_out=self.enhance_output, ensemble=self.ensemble,
-            )
-        elif self.ensemble:
-            out = infer_step_ensemble_u8(self.members, x, self.enhance_output)
-        else:
-            out = infer_step_u8(self.model, x, self.enhance_output)
-        out = out.cpu().numpy()
+        out = self._run(x, u8=True).cpu().numpy()
         return out[0] if single else out
 
     def upscale_file(self, in_path: str, out_path: str) -> None:
@@ -346,8 +384,10 @@ def upscale_directory(
     tile_batch: int = 4,
     tile_overlap: int = 16,
     device=None,
+    devices: Optional[Sequence] = None,
 ) -> int:
-    """Batch-serving path: super-resolve every image in a folder.
+    """Batch-serving path: super-resolve every image in a folder
+    (``devices``: data-parallel serving, as in :class:`Upscaler`).
 
     O(batch) host memory: a header-only pass buckets file names by image
     size. Buckets of at least ``min_bucket_for_direct`` files take the
@@ -357,17 +397,20 @@ def upscale_directory(
     one tile shape for every size. Decode of batch k+1 (one worker
     thread), SR of batch k (this thread, uint8 off the device) and encode of
     batch k−1 (another worker, at most 2 batches queued) overlap. The codec
-    is PIL; the JAX package's native C++ codec is not ported (ROADMAP.md,
-    queue 1, item 5). Unreadable inputs are skipped; a decoded size that
-    disagrees with the header, and a file that fails to encode, are skipped
-    with a warning. Returns the number of images written and prints a
-    bucket summary and a timing line to stderr.
+    is the native C++ one (``srgan_tpu_torch.native``: a batch decoded and
+    encoded on its threads, the GIL released) where it builds, else PIL; a
+    file the native decoder or encoder rejects is retried with PIL, and only
+    a file both fail on is skipped, with a warning for an encode and for a
+    decoded size that disagrees with the header. Returns the number of
+    images written and prints a bucket summary and a timing line, which
+    names the codec that served, to stderr.
     """
     import collections
     from concurrent import futures
 
     from PIL import Image as PILImage
 
+    from srgan_tpu_torch import native
     from srgan_tpu_torch.data.dataset import list_image_files, load_image_rgb
 
     _serving_device(device if upscaler is None else upscaler.device)
@@ -378,10 +421,11 @@ def upscale_directory(
             Upscaler.from_checkpoint(
                 results_dir, prefix, enhance_output=enhance_output,
                 ensemble=ensemble, tta=tta, ema=ema, device=device,
+                devices=devices,
             )
             if latest_ckpt_dir(results_dir, prefix) is not None
             else Upscaler.random_init(enhance_output=enhance_output,
-                                      device=device)
+                                      device=device, devices=devices)
         )
     os.makedirs(output_dir, exist_ok=True)
     t_start = time.perf_counter()
@@ -396,10 +440,24 @@ def upscale_directory(
         except Exception:
             continue  # unreadable — skip (training-loader parity)
 
+    use_native = native.available()
+    native_enc = use_native and native.encoder_available()
+    codec = "native" if native_enc else (
+        "PIL" + ("" if native.build_error() is None
+                 else f" (native codec unavailable: {native.build_error()})"))
+
     def decode(h, w, chunk):
         t0 = time.perf_counter()
-        imgs, names = [], []
-        for f in chunk:
+        imgs, names, retry = [], [], chunk
+        if use_native:
+            paths = [os.path.join(input_dir, f) for f in chunk]
+            batch, ok = native.load_batch_u8(paths, h, w)
+            imgs = [batch[j] for j in np.flatnonzero(ok)]
+            names = [f for f, o in zip(chunk, ok) if o]
+            # what the native decoder rejects (a CMYK JPEG, an exotic PNG)
+            # but PIL reads is still served
+            retry = [f for f, o in zip(chunk, ok) if not o]
+        for f in retry:
             img = load_image_rgb(os.path.join(input_dir, f))
             if img is None:
                 continue
@@ -422,14 +480,19 @@ def upscale_directory(
     def write_batch(sr_u8, out_paths):
         t0 = time.perf_counter()
         n_ok = 0
-        for img, path in zip(sr_u8, out_paths):
+        fails = range(len(out_paths))
+        if native_enc:
+            ok = native.save_batch_u8(out_paths, sr_u8)
+            n_ok += int(ok.sum())
+            fails = np.flatnonzero(~ok)
+        for j in fails:  # an extension the codec lacks, or no codec: PIL
             # one unwritable file (bad extension, disk error) must not
             # abort the remaining batches
             try:
-                PILImage.fromarray(img).save(path)
+                PILImage.fromarray(sr_u8[j]).save(out_paths[j])
                 n_ok += 1
             except Exception as e:
-                print(f"warning: failed to encode {path}: {e}; skipped",
+                print(f"warning: failed to encode {out_paths[j]}: {e}; skipped",
                       file=sys.stderr)
         seconds["encode"] += time.perf_counter() - t0
         return n_ok
@@ -515,7 +578,7 @@ def upscale_directory(
         f"upscale_directory: {written} image(s) in {wall:.3f} s "
         f"({written / wall:.2f} img/s); decode {seconds['decode']:.3f} s, "
         f"SR {seconds['sr']:.3f} s, encode {seconds['encode']:.3f} s "
-        "(decode and encode on their own threads)",
+        f"(decode and encode on their own threads); codec {codec}",
         file=sys.stderr,
     )
     return written

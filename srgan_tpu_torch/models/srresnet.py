@@ -37,6 +37,7 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -243,3 +244,50 @@ def init_generator(
     model = SRResNet.from_config(cfg)
     _init_like_flax(model, torch.Generator().manual_seed(seed))
     return model.to(device) if device is not None else model
+
+
+def _fold(k: np.ndarray, b: np.ndarray, out_k: int, reach: int):
+    """The shared index algebra of the head folds (r = 2, torch
+    pixel-shuffle channel order (c, rh, rw)): fine output pixel (2i+a,
+    2j+b) reads fine input (2i+a+u, 2j+b+v) = coarse (i+s, j+t) phase (p,
+    q), with u = 2s + p − a and v = 2t + q − b; the coarse kernel is
+    ``out_k`` wide and zero where |u| or |v| exceeds ``reach``."""
+    kh, kw, cin, cout = k.shape
+    half = out_k // 2
+    out = np.zeros((out_k, out_k, 4 * cin, 4 * cout), np.float32)
+    for p in range(2):
+        for q in range(2):
+            for a in range(2):
+                for bb in range(2):
+                    for s in range(-half, half + 1):
+                        for t in range(-half, half + 1):
+                            u, v = 2 * s + p - a, 2 * t + q - bb
+                            if -reach <= u <= reach and -reach <= v <= reach:
+                                out[s + half, t + half, p * 2 + q::4, a * 2 + bb::4] = (
+                                    k[u + kh // 2, v + kw // 2])
+    return out, np.repeat(np.asarray(b, np.float32), 4)
+
+
+def reference_head_to_subpixel(k9, b3):
+    """A reference-head tail kernel → the equivalent subpixel-head phase
+    kernel (JAX ``models/srresnet.py:271``). ``k9``: (9, 9, F, C) HWIO
+    kernel of the post-shuffle conv9x9, ``b3``: (C,) bias (numpy arrays or
+    CPU tensors). Returns numpy ``(k5, b12)``, k5 (5, 5, 4F, 4C), such that
+    ``conv9x9(pixel_shuffle(x)) == pixel_shuffle(conv5x5(x))`` exactly (2
+    coarse pad rows are 4 fine ones)."""
+    k9 = np.asarray(k9, np.float32)
+    if k9.shape[:2] != (9, 9):
+        raise ValueError(f"expected a (9, 9, F, C) kernel, got {k9.shape}")
+    return _fold(k9, b3, 5, 4)
+
+
+def fold_phase_conv_to_coarse(k5, b12):
+    """A subpixel-head phase kernel → the equivalent coarse-head kernel
+    (JAX ``models/srresnet.py:320``). ``k5``: (5, 5, C_in, C_out) HWIO kernel
+    of the conv after one pixel shuffle, ``b12``: (C_out,). Returns numpy
+    ``(k3, b48)``, k3 (3, 3, 4·C_in, 4·C_out), such that ``ps(conv5x5(x))
+    == ps(ps(conv3x3(unshuffle(x))))`` exactly."""
+    k5 = np.asarray(k5, np.float32)
+    if k5.shape[:2] != (5, 5):
+        raise ValueError(f"expected a (5, 5, C_in, C_out) kernel, got {k5.shape}")
+    return _fold(k5, b12, 3, 2)

@@ -51,15 +51,22 @@ def edge_importance_map(hr: torch.Tensor) -> torch.Tensor:
 
 
 def reconstruction_loss(
-    hr: torch.Tensor, sr: torch.Tensor
+    hr: torch.Tensor, sr: torch.Tensor, group=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(edge_loss, tv_loss)`` for an NHWC batch pair; the edge map comes
     from ``hr``, the TV penalty applies to ``sr``. CUDA tensors launch the
-    kernels; CPU tensors run the plain version."""
-    if hr.is_cuda or sr.is_cuda:
+    kernels; CPU tensors run the plain version.
+
+    ``group``: a ``torch.distributed`` process group whose ranks hold the
+    rows of one global batch. The statistics and both sums are then the
+    global batch's (the JAX ``Trainer``'s loss over a mesh), and the
+    gradient is scaled for averaging across ranks
+    (``ops.cuda.recon_loss_kernel.ReconstructionLoss``); on CPU tensors
+    through the kernels' plain versions, in fp64 totals as the kernels sum."""
+    if hr.is_cuda or sr.is_cuda or group is not None:
         from srgan_tpu_torch.ops.cuda.recon_loss_kernel import ReconstructionLoss
 
-        return ReconstructionLoss.apply(hr, sr)
+        return ReconstructionLoss.apply(hr, sr, group)
     return reconstruction_loss_with_edges(hr, sr, edge_importance_map(hr))
 
 

@@ -28,7 +28,7 @@ from srgan_tpu_torch.data.dataset import list_image_files, load_hr_clip_u8
 from srgan_tpu_torch.models.encoder import alignment_loss, init_encoder, save_encoder_npz
 from srgan_tpu_torch.ops.gan_loss import uniformity_loss
 from srgan_tpu_torch.training.train_state import TrainState
-from srgan_tpu_torch.utils.platform import disable_tf32, resolve_device
+from srgan_tpu_torch.utils.platform import disable_tf32, make_deterministic, resolve_device
 
 
 def load_corpus(folder: str, load_size: int) -> np.ndarray:
@@ -131,6 +131,7 @@ def train_contrastive_encoder(
         raise ValueError(f"steps must be >= 1, got {steps}")
     dev = resolve_device(device)
     disable_tf32()  # f32 means f32 here too: no Trainer turns it off
+    make_deterministic()
     corpus = load_corpus(data_dir, load_size)
     if verbose:
         print(f"corpus: {len(corpus)} images @ {load_size}px", file=sys.stderr)

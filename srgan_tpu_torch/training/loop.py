@@ -19,8 +19,29 @@ Loss scalars stay on the device: every batch packs them into one tensor,
 and the loop fetches batch k−1's while batch k is already queued on the
 card (one host fetch per batch, the JAX loop's lagged drain).
 
-One process drives one device. Not ported yet (it raises, naming its
-ROADMAP.md item): the ``vmap`` pool executor.
+One process drives one device. Where the process has joined a group
+(``parallel.mesh.initialize_multihost``, ``train --multihost``) the run is
+data-parallel over its ranks, as JAX's ``Trainer`` is over a mesh:
+
+  - each rank trains on its shard of every epoch (``EpochSampler``) and
+    draws the degradation for the global batch, keeping its rows;
+  - the reconstruction loss is the global batch's (its totals summed over
+    the ranks), every gradient is averaged before the in-place Adam step,
+    and the packed loss scalars are averaged, so the pool's sort, its GAN
+    gate and the discriminator's target read the same numbers on every
+    rank (``TrainState.group``, ``training/steps.py``);
+  - a SIGTERM on any rank stops every rank at the same batch boundary
+    (checked collectively every ``stop_sync_every_batches``) or epoch end;
+  - validation scores are the global mean (every rank's batch scores,
+    gathered in rank order), so ``keep_best`` and the snapshots agree on
+    every rank;
+  - rank 0 alone writes checkpoints and sidecars into the shared results
+    dir, and a barrier follows each blocking save; every rank reads on
+    resume; each rank logs its own metrics JSONL (rank-suffixed after rank
+    0), averaged across ranks with ``reduce_metrics``.
+
+Not ported yet (it raises, naming its ROADMAP.md item): the ``vmap`` pool
+executor.
 Configs that the JAX ``Trainer`` refuses raise the same ``ValueError``
 here. ``debug_nans`` checks every drained loss vector and raises
 ``FloatingPointError`` at the first non-finite one (JAX turns on
@@ -45,6 +66,7 @@ from srgan_tpu_torch.models.encoder import init_encoder_extractor
 from srgan_tpu_torch.models.srresnet import init_generator
 from srgan_tpu_torch.models.vgg import init_vgg_extractor
 from srgan_tpu_torch.ops.resize import resize_bilinear
+from srgan_tpu_torch.parallel import mesh
 from srgan_tpu_torch.training import checkpoint as ckpt
 from srgan_tpu_torch.training.pool import GeneratorPool, PoolMember
 from srgan_tpu_torch.training.stacked_pool import (
@@ -63,7 +85,11 @@ from srgan_tpu_torch.training.steps import (
 )
 from srgan_tpu_torch.training.train_state import TrainState, epoch_lr
 from srgan_tpu_torch.utils.logging import MetricsLogger, ProgressLine, Throughput
-from srgan_tpu_torch.utils.platform import disable_tf32, resolve_device
+from srgan_tpu_torch.utils.platform import (
+    disable_tf32,
+    make_deterministic,
+    resolve_device,
+)
 from srgan_tpu_torch.utils.plotting import save_comparison, save_rating_curve
 
 # the epoch record's loss keys, in the JAX loop's order
@@ -89,6 +115,8 @@ def _packed_names(n_members: int, has_d: bool) -> list:
 
 class Trainer:
     def __init__(self, cfg: Config, device=None):
+        """``device``: the card by default. The process group, where the
+        process has joined one, is the world group (``--multihost``)."""
         # the JAX Trainer's refusals, before any device work
         if cfg.train.stop_sync_every_batches < 1:
             raise ValueError(
@@ -123,8 +151,12 @@ class Trainer:
             )
         self.cfg = cfg
         self.device = resolve_device(device)
-        # compute_dtype "float32" is full fp32: cuDNN convs default to TF32
+        self.group = mesh.default_group()
+        self._n_processes, self._rank = mesh.process_shard_info(self.group)
+        # compute_dtype "float32" is full fp32: cuDNN convs default to TF32;
+        # and a run's numbers depend on its command only
         disable_tf32()
+        make_deterministic()
         # member i's weights from (seed, i), D's from (seed, N + 1), as JAX
         # splits its key into N + 2 and gives D the last
         members = []
@@ -159,6 +191,7 @@ class Trainer:
                 self.extractor = init_vgg_extractor(
                     _mix(cfg.train.seed, n), layers=tuple(cfg.train.vgg_layers),
                     weights_npz=cfg.train.vgg_weights_npz, device=self.device)
+        self._attach_group()
         self.spool: Optional[StackedGeneratorPool] = None
         if self.use_stacked:
             self.spool = StackedGeneratorPool.create(
@@ -178,9 +211,24 @@ class Trainer:
     # ------------------------------------------------------------------ #
 
     def _log_prefix(self) -> str:
-        """Metrics-JSONL prefix: one process, so the run prefix as is (JAX
-        suffixes the ranks of other processes)."""
-        return self.cfg.train.run_prefix
+        """Metrics-JSONL prefix: plain on rank 0, rank-suffixed elsewhere
+        (the reference's per-rank curves, ``src/train.py:123-137``, without
+        two processes writing one file)."""
+        prefix = self.cfg.train.run_prefix
+        return prefix if self._rank == 0 else f"{prefix}_rank{self._rank}"
+
+    def _attach_group(self) -> None:
+        """Give every state the process group (their gradient all-reduce)
+        and start every rank from rank 0's weights: the same seeds make
+        them equal already, the broadcast makes sure."""
+        states = [m.state for m in self.pool.members]
+        if self.d_state is not None:
+            states.append(self.d_state)
+        for st in states:
+            st.group = self.group
+            mesh.replicate(st.model, self.group)
+            if st.ema_model is not None:
+                mesh.replicate(st.ema_model, self.group)
 
     def _leader(self, *, serve: bool = False) -> torch.nn.Module:
         """The current best generator. ``serve=True`` prefers the EMA shadow
@@ -225,9 +273,17 @@ class Trainer:
         self.spool.gan_threshold = self.pool.gan_threshold
 
     def _should_stop(self, batch_idx: int) -> bool:
-        """Batch-boundary preemption check: one process reads its own flag
-        at every batch."""
-        return self._stop_requested
+        """Batch-boundary preemption check. One process reads its own flag
+        at every batch. Across processes the decision is collective (a rank
+        leaving the loop of collective steps alone would leave the others
+        blocked in the next step): the ranks OR their flags every
+        ``stop_sync_every_batches``-th boundary, all at the same ones, and
+        stop together or not at all."""
+        if self._n_processes == 1:
+            return self._stop_requested
+        if batch_idx % self.cfg.train.stop_sync_every_batches:
+            return False
+        return mesh.any_process_flag(self._stop_requested, self.group)
 
     def _check_finite(self, vals, names, epoch: int, batch_idx: int) -> None:
         if self.cfg.train.debug_nans and not all(map(math.isfinite, vals)):
@@ -426,10 +482,14 @@ class Trainer:
             p, s = eval_step(model, hr, lr_imgs)
             psnrs.append(p)
             ssims.append(s)
-        if not psnrs:
+        if not psnrs:  # on every rank alike: the ranks' val shards are equal
             return float("nan"), float("nan")
-        return (float(torch.stack(psnrs).mean()),
-                float(torch.stack(ssims).mean()))
+        # across processes the mean over every rank's batches, the global
+        # batches JAX scores (equal shards: each rank's batch k is a part of
+        # global batch k of equal size); the ranks' values in rank order
+        psnr = mesh.all_gather_cat(torch.stack(psnrs), self.group)
+        ssim = mesh.all_gather_cat(torch.stack(ssims), self.group)
+        return float(psnr.mean()), float(ssim.mean())
 
     def validate(self, val_pipeline: TrainPipeline, epoch: int) -> Optional[str]:
         """One validation batch → [LR↑ | SR | HR] comparison PNG
@@ -439,21 +499,30 @@ class Trainer:
         for hr, lr_imgs in val_pipeline.epoch(epoch, gen):
             sr = infer_step(model, lr_imgs)
             lr_up = resize_bilinear(lr_imgs, (hr.shape[1], hr.shape[2]))
+            # each rank renders the grid of its own rows (the reference's
+            # per-rank comparison PNGs, ``src/train.py:233-260``)
             return save_comparison(
                 lr_up.cpu().numpy(), sr.cpu().numpy(), hr.cpu().numpy(),
                 self.cfg.train.results_dir, self.cfg.train.run_prefix, epoch,
+                rank=self._rank,
             )
         return None
 
     # ------------------------------------------------------------------ #
 
     def _save(self, prefix: str, epoch: int, block: bool = True) -> None:
+        """Snapshot the run. Rank 0 alone writes into the shared results
+        dir; a blocking save ends in a barrier, so that no rank reads or
+        exits before the snapshot is committed."""
         self._sync_pool_from_stacked()
-        ckpt.save_checkpoint(
-            self.cfg.train.results_dir, prefix, pool=self.pool,
-            d_state=self.d_state, epoch=epoch, model_config=self.cfg.model,
-            block=block,
-        )
+        if self._rank == 0:
+            ckpt.save_checkpoint(
+                self.cfg.train.results_dir, prefix, pool=self.pool,
+                d_state=self.d_state, epoch=epoch, model_config=self.cfg.model,
+                block=block,
+            )
+        if block:
+            mesh.barrier(self.group)
 
     def train(
         self,
@@ -504,16 +573,17 @@ class Trainer:
 
         # one device-cache budget for both pipelines: train reserves first
         cache_budget = DeviceCacheBudget(cfg.data.device_cache_budget_bytes)
+        shards = dict(num_shards=self._n_processes, shard_index=self._rank)
         pipeline = TrainPipeline(
             cfg.data,
             cfg.data.train_dir if train_folder is None else train_folder,
-            use_split=True,
+            use_split=True, **shards,
             seed=cfg.train.seed, device=self.device, cache_budget=cache_budget,
         )
         val_pipeline = TrainPipeline(
             cfg.data,
             cfg.data.val_dir if val_folder is None else val_folder,
-            use_split=False,
+            use_split=False, **shards,
             seed=cfg.train.seed + 1, device=self.device,
             cache_budget=cache_budget,
             augment=False,  # scoring sees the images, never flips of them
@@ -596,8 +666,8 @@ class Trainer:
                 if active_pool.gan_threshold is not None:
                     # the gate's (possibly auto-calibrated) threshold
                     record["gan_threshold"] = active_pool.gan_threshold
-                # cfg.train.reduce_metrics: the cross-process mean is the
-                # identity on one process
+                if cfg.train.reduce_metrics:
+                    record = mesh.reduce_metrics(record, self.group)
                 self.logger.log(record)
                 last = record
                 print(
@@ -606,8 +676,9 @@ class Trainer:
                     f"psnr={psnr:.3f} ssim={ssim:.4f} "
                     f"({train_metrics['images_per_sec']:.1f} img/s)"
                 )
-                # epoch-boundary stop: a SIGTERM after the last batch
-                if self._stop_requested:
+                # epoch-boundary stop: a SIGTERM after the last batch;
+                # collective, as in _should_stop
+                if mesh.any_process_flag(self._stop_requested, self.group):
                     ckpt.wait_for_checkpoints()
                     self._save(cfg.train.run_prefix, epoch + 1)
                     print(
@@ -624,6 +695,7 @@ class Trainer:
                 self.history["ssim"],
                 cfg.train.results_dir,
                 cfg.train.run_prefix,
+                rank=self._rank,
             )
         finally:
             pipeline.close()

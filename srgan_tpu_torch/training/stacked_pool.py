@@ -97,7 +97,7 @@ def _scan_pool_update(states: Sequence[TrainState], hr, lr_imgs, g_lr: float,
     for i, st in enumerate(states):
         st.model.train()
         sr = st.model(lr_imgs)
-        com, tv = reconstruction_loss(hr, sr)
+        com, tv = reconstruction_loss(hr, sr, st.group)
         g_d = zero
         if d_model is not None:
             # a member with mask 0 takes no gradient through D
@@ -139,7 +139,7 @@ def scanned_pool_step(
     losses, _ = _scan_pool_update(states, hr, lr_imgs, lr, extractor=extractor,
                                   p_weight=p_weight)
     metrics = _metrics(losses)
-    metrics["packed"] = pack_metrics(metrics)
+    metrics["packed"] = pack_metrics(metrics, group=states[0].group)
     return states, metrics
 
 
@@ -168,7 +168,7 @@ def scanned_pool_gan_step(
     d_state, d_metrics = discriminator_step_on_sr(d_state, hr, sr_d, d_lr,
                                                   real_preds=real_preds)
     metrics = {**_metrics(losses), "d_loss": d_metrics["d_loss"]}
-    metrics["packed"] = pack_metrics(metrics, d_metrics["d_loss"])
+    metrics["packed"] = pack_metrics(metrics, d_metrics["d_loss"], states[0].group)
     return states, d_state, metrics
 
 

@@ -11,6 +11,14 @@ the card), backward (K3 for the loss, cuDNN for the convs) and the Adam
 update in place. Loss scalars stay on the device; ``metrics["packed"]``
 stacks them so the loop fetches one array per batch.
 
+Across processes (a state's ``group``, set by a multi-process ``Trainer``)
+the reconstruction loss is the global batch's, ``apply_gradients``
+averages every gradient over the ranks, and the packed scalars and
+``d_loss`` are averaged too: every number the loop decides on is the same
+on every rank. The mean-type terms (adversarial, perceptual, D's loss) are
+each rank's mean over its rows; with equal shards their average is the
+global mean.
+
 The GAN steps keep JAX's "simultaneous" semantics although Adam runs in
 place: the generator's adversarial term reads the discriminator before its
 update, the discriminator trains on the generator's pre-update SR
@@ -38,6 +46,7 @@ from srgan_tpu_torch.ops.filters import sharpen
 from srgan_tpu_torch.ops.gan_loss import discriminator_loss, generator_adversarial_loss
 from srgan_tpu_torch.ops.metrics import batched_psnr_ssim
 from srgan_tpu_torch.ops.recon_loss import reconstruction_loss
+from srgan_tpu_torch.parallel.mesh import average_
 from srgan_tpu_torch.training.train_state import TrainState
 
 # Layout of the fetch-once loss vector every train step also returns as
@@ -45,12 +54,20 @@ from srgan_tpu_torch.training.train_state import TrainState
 PACKED_KEYS = ("g_loss", "com_loss", "tv_loss", "g_d_loss", "p_loss")
 
 
-def pack_metrics(metrics: dict, d_loss=None) -> torch.Tensor:
-    """Stack the standard loss scalars (PACKED_KEYS order), and append
-    ``d_loss`` when given, into one device tensor for a single fetch. Per-
+def averaged(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` averaged across the group's ranks (a copy; ``x`` itself
+    without a group)."""
+    return x if group is None else average_(x.clone(), group)
+
+
+def pack_metrics(metrics: dict, d_loss=None, group=None) -> torch.Tensor:
+    """Stack the standard loss scalars (PACKED_KEYS order), averaged across
+    ``group``'s ranks where given, and append ``d_loss`` (averaged by its
+    caller) when given, into one device tensor for a single fetch. Per-
     member (N,) losses stack to (5, N), flattened to (5N + 1,) with
     ``d_loss``."""
     packed = torch.stack([torch.as_tensor(metrics[k]) for k in PACKED_KEYS])
+    average_(packed, group)
     if d_loss is not None:
         packed = torch.cat([packed.reshape(-1), d_loss.reshape(1)])
     return packed
@@ -84,12 +101,13 @@ def _add_perceptual(g_loss, sr, hr, extractor, p_weight):
 
 
 def generator_pixel_loss_fn(model: nn.Module, hr, lr_imgs, extractor=None,
-                            p_weight: float = 0.0):
+                            p_weight: float = 0.0, group=None):
     """Pixel-phase objective: edge-weighted L1 + masked TV
     (``src/train.py:194-195``: ``g_loss = com_loss + tv_loss``), plus the
-    opt-in perceptual term (``src/utils.py:154-166``)."""
+    opt-in perceptual term (``src/utils.py:154-166``); the reconstruction
+    terms over ``group``'s global batch where given."""
     sr = model(lr_imgs)
-    com_loss, tv_loss = reconstruction_loss(hr, sr)
+    com_loss, tv_loss = reconstruction_loss(hr, sr, group)
     g_loss, p_loss = _add_perceptual(com_loss + tv_loss, sr, hr, extractor, p_weight)
     return g_loss, {"com_loss": com_loss, "tv_loss": tv_loss, "p_loss": p_loss, "sr": sr}
 
@@ -110,27 +128,29 @@ def generator_pixel_step(
     pre-update SR (detached), for a following discriminator update."""
     model = g_state.model
     model.train()
-    g_loss, aux = generator_pixel_loss_fn(model, hr, lr_imgs, extractor, p_weight)
+    g_loss, aux = generator_pixel_loss_fn(model, hr, lr_imgs, extractor, p_weight,
+                                          g_state.group)
     grads = torch.autograd.grad(g_loss, g_state.params)
     g_state.apply_gradients(grads, lr)
     metrics = {"g_loss": g_loss.detach(), "g_d_loss": torch.zeros_like(aux["p_loss"]),
                **{k: v.detach() for k, v in aux.items() if k != "sr"}}
-    metrics["packed"] = pack_metrics(metrics)
+    metrics["packed"] = pack_metrics(metrics, group=g_state.group)
     if return_sr:
         metrics["sr"] = aux["sr"].detach()
     return g_state, metrics
 
 
 def generator_gan_loss_fn(model: nn.Module, d_model: nn.Module, hr, lr_imgs,
-                          real_preds=None, extractor=None, p_weight: float = 0.0):
+                          real_preds=None, extractor=None, p_weight: float = 0.0,
+                          group=None):
     """GAN-phase objective: the pixel terms plus the relativistic term
     ``mean(tanh(D(hr) - D(sr)))`` (``src/train.py:184-192``), D(hr)
     detached, plus the opt-in perceptual term. ``real_preds``: D(hr) where
     the caller has it (with its graph, for a fused discriminator update),
     else computed here without one. Returns the loss and its parts, D(sr)
-    among them."""
+    among them. ``group`` as in :func:`generator_pixel_loss_fn`."""
     sr = model(lr_imgs)
-    com_loss, tv_loss = reconstruction_loss(hr, sr)
+    com_loss, tv_loss = reconstruction_loss(hr, sr, group)
     if real_preds is None:
         with torch.no_grad():
             real_preds = d_model(hr)
@@ -164,11 +184,12 @@ def generator_gan_step(
     :func:`generator_pixel_step`."""
     g_state.model.train()
     g_loss, aux = generator_gan_loss_fn(g_state.model, d_model, hr, lr_imgs,
-                                        extractor=extractor, p_weight=p_weight)
+                                        extractor=extractor, p_weight=p_weight,
+                                        group=g_state.group)
     grads = torch.autograd.grad(g_loss, g_state.params)
     g_state.apply_gradients(grads, lr)
     metrics = _gan_metrics(g_loss, aux)
-    metrics["packed"] = pack_metrics(metrics)
+    metrics["packed"] = pack_metrics(metrics, group=g_state.group)
     if return_sr:
         metrics["sr"] = aux["sr"].detach()
     return g_state, metrics
@@ -192,15 +213,15 @@ def gan_train_step(
     g_state.model.train()
     real_preds = d_state.model(hr)
     g_loss, aux = generator_gan_loss_fn(g_state.model, d_state.model, hr, lr_imgs,
-                                        real_preds, extractor, p_weight)
+                                        real_preds, extractor, p_weight, g_state.group)
     d_loss = discriminator_loss(real_preds, aux["fake_preds"])
     g_grads = torch.autograd.grad(g_loss, g_state.params, retain_graph=True)
     d_grads = torch.autograd.grad(d_loss, d_state.params)
     g_state.apply_gradients(g_grads, g_lr)
     d_state.apply_gradients(d_grads, d_lr)
-    d_loss = d_loss.detach()
+    d_loss = averaged(d_loss.detach(), d_state.group)
     metrics = {**_gan_metrics(g_loss, aux), "d_loss": d_loss}
-    metrics["packed"] = pack_metrics(metrics, d_loss)
+    metrics["packed"] = pack_metrics(metrics, d_loss, g_state.group)
     return g_state, d_state, metrics
 
 
@@ -251,7 +272,7 @@ def discriminator_step_on_sr(
     d_loss = discriminator_loss(real_preds, d_state.model(sr.detach()))
     grads = torch.autograd.grad(d_loss, d_state.params)
     d_state.apply_gradients(grads, lr)
-    return d_state, {"d_loss": d_loss.detach()}
+    return d_state, {"d_loss": averaged(d_loss.detach(), d_state.group)}
 
 
 @torch.no_grad()

@@ -7,6 +7,10 @@ so the per-epoch schedule is a plain host float (reference: torch
 ``optim.Adam`` + ``LinearLR``, ``src/train.py:61-71``). The update runs
 in place with ``torch._foreach_*`` over the parameter list; nothing in it
 reads a device value on the host.
+
+``group``: the process group of a multi-process run (None on one process).
+``apply_gradients`` then averages the gradients across its ranks first
+(DDP's all-reduce), so every rank takes the same Adam step.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from srgan_tpu_torch.config import TrainConfig
+from srgan_tpu_torch.parallel.mesh import average_grads
 
 
 class TrainState:
@@ -30,6 +35,7 @@ class TrainState:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.group = None  # set by a multi-process Trainer
         self.ema_decay = float(ema_decay)
         # The EMA shadow (None = off): a copy of the model whose weights
         # follow ema ← d·ema + (1−d)·params after every update.
@@ -54,8 +60,9 @@ class TrainState:
 
     @torch.no_grad()
     def apply_gradients(self, grads: Sequence[torch.Tensor], lr: float) -> None:
-        """One Adam step with learning rate ``lr``, then the EMA step."""
-        grads = list(grads)
+        """One Adam step with learning rate ``lr``, then the EMA step; with a
+        ``group``, on the gradients averaged across its ranks."""
+        grads = average_grads(grads, self.group)
         self.count += 1
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(self.mu, b1)

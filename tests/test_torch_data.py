@@ -117,8 +117,12 @@ class TestResize:
         assert lr.shape == (2, 8, 8, 3)
 
     def test_salt_pepper_names_roadmap(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.degrade_batch(torch.zeros(1, 8, 8, 3), torch.Generator(), salt_prob=0.1)
+        """Salt & pepper no longer raises (it is ported; its parity with
+        JAX is held in ``test_torch_resize_extras.py``): a grey batch takes
+        spots of exactly 1.0 at this density."""
+        lr = tr.degrade_batch(torch.full((1, 32, 32, 3), 0.5), torch.Generator(),
+                              salt_prob=0.5, noise_std_max=0.0, factor=1)
+        assert bool((lr == 1.0).any())
 
 
 class TestMetrics:

@@ -77,10 +77,17 @@ def _jax_draws(key, n, size, crop):
 
 
 class TestViews:
-    def test_load_corpus_matches_jax(self, tmp_path, monkeypatch):
-        """Equal to JAX's PIL path (its native decoder, where built, is
-        within 1 LSB of PIL; the port decodes with PIL, ROADMAP item 5)."""
-        monkeypatch.setattr(jds, "_native_available", lambda: False)
+    @pytest.mark.parametrize("use_native", [False, True], ids=["pil", "native"])
+    def test_load_corpus_matches_jax(self, tmp_path, monkeypatch, use_native):
+        """Equal to JAX's, each package on its PIL path and each on its
+        native codec (the same C++ source; within 1 LSB of PIL when it
+        upsizes). The native case skips where the codec cannot be built."""
+        from srgan_tpu_torch.data import dataset as tds
+
+        if use_native and not (tds.native_available() and jds._native_available()):
+            pytest.skip("the native codec cannot be built here")
+        monkeypatch.setattr(jds, "_native_available", lambda: use_native)
+        monkeypatch.setattr(tds, "native_available", lambda: use_native)
         folder = _images(str(tmp_path / "imgs"), 4, 0, hw=(40, 56))
         with open(os.path.join(folder, "zz_corrupt.png"), "wb") as f:
             f.write(b"not an image")

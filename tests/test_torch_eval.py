@@ -218,14 +218,21 @@ class TestCLI:
         assert teval.main(argv) == want  # the standalone script's contract
 
     @pytest.mark.parametrize("argv,exc,match", [
-        (["upscale", "a.png", "b.png", "--dp"], NotImplementedError, "item 10"),
-        (["upscale-dir", "a", "b", "--dp"], NotImplementedError, "item 10"),
+        (["train", "--pool-exec", "vmap", "--device", "cpu"], NotImplementedError,
+         "item 7"),
+        (["train", "--multihost", "--device", "cpu"], RuntimeError, "MASTER_ADDR"),
         (["eval", "--perceptual-metric", "e.npz", "--bucketed", "--device", "cpu"],
          ValueError, "not supported with --bucketed"),
     ])
-    def test_unported_flags_name_their_item(self, argv, exc, match):
-        """--dp names its ROADMAP item; --perceptual-metric is ported and
-        refuses --bucketed, as in JAX."""
+    def test_unported_flags_name_their_item(self, argv, exc, match, monkeypatch):
+        """The one unported flag, --pool-exec vmap, names its ROADMAP item
+        (--dp is ported: ``tests/test_torch_parallel.py``); --multihost
+        without torchrun's variables names them; --perceptual-metric is
+        ported and refuses --bucketed, as in JAX."""
+        from srgan_tpu_torch.parallel.mesh import ENV_VARS
+
+        for var in ENV_VARS:
+            monkeypatch.delenv(var, raising=False)
         with pytest.raises(exc, match=match):
             cli.main(argv)
 

@@ -268,7 +268,9 @@ class TestImports:
                 "srgan_tpu_torch.models.enhancer",
                 "srgan_tpu_torch.utils.torch_port", "srgan_tpu_torch.models.vgg",
                 "srgan_tpu_torch.models.encoder",
-                "srgan_tpu_torch.training.encoder_train"} <= names
+                "srgan_tpu_torch.training.encoder_train",
+                "srgan_tpu_torch.parallel.mesh", "srgan_tpu_torch.parallel.data_parallel",
+                "srgan_tpu_torch.utils.profiling", "srgan_tpu_torch.native"} <= names
 
     def test_no_import_lines_of_jax(self):
         files = sorted((REPO / "srgan_tpu_torch").rglob("*.py"))

@@ -131,3 +131,90 @@ def test_recon_source_refuses_misaligned_vector_path(emulated_lib):
     rk._launch_loss_sums(emulated_lib, hr, sr, stats, False, 0)
     odd = torch.zeros(1, 9, 33, 1)  # W·C % 4 != 0
     assert not rk.vector_path(odd, odd)
+
+
+# ------------------------------------------------- the split finalise ----
+# K1 and K2 end in a totals stage and a finalise; a process group sums the
+# ranks' totals between the two. One rank must give the bits of no group;
+# two half-batches' totals summed must give the whole batch's.
+
+
+@pytest.fixture(scope="module")
+def world1():
+    """A one-rank gloo group, destroyed after this module."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_group(lib, hr, sr, vec, g_edge, g_tv, group):
+    stats = rk._launch_edge_stats(lib, hr, vec, 0, group)
+    edge_loss, tv_loss = rk._launch_loss_sums(lib, hr, sr, stats, vec, 0, group)
+    dsr = rk._launch_loss_grad(lib, hr, sr, stats, torch.tensor(g_edge),
+                               torch.tensor(g_tv), vec, 0)
+    return stats, edge_loss, tv_loss, dsr
+
+
+@pytest.mark.parametrize("vec", [True, False], ids=["vec", "scalar"])
+def test_recon_source_world1_group_is_bit_identical(emulated_lib, world1, vec):
+    hr, sr = _pair((2, 19, 44, 3), seed=3)
+    alone = _run_group(emulated_lib, hr, sr, vec, 1.0, -0.5, None)
+    grouped = _run_group(emulated_lib, hr, sr, vec, 1.0, -0.5, world1)
+    assert float(alone[0][3]) > 0  # the TV term and its gradient are live
+    for a, b in zip(alone, grouped):
+        assert torch.equal(a, b)
+    assert float(alone[0][4]) == hr.numel()  # the count rides in stats
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    ia, ib = (t.contiguous().view(torch.int32).long() for t in (a, b))
+    return int((ia - ib).abs().max())
+
+
+@pytest.mark.parametrize("vec", [True, False], ids=["vec", "scalar"])
+def test_recon_source_half_batch_totals_sum_to_the_whole(emulated_lib, vec):
+    """Two ranks of one image each: their totals, summed in rank order,
+    equal the two-image batch's totals to fp64 rounding, and the finalised
+    statistics, losses and K3's gradient (on the global stats, each rank's
+    rows) agree with the whole batch's within 1 ulp."""
+    hr, sr = _pair((2, 19, 44, 3), seed=4)
+    lib = emulated_lib
+    whole_t, whole_stats = rk._launch_edge_totals(lib, hr, vec, 0)
+    halves = [rk._launch_edge_totals(lib, hr[i:i + 1].contiguous(), vec, 0) for i in (0, 1)]
+    summed = halves[0][0] + halves[1][0]
+    np.testing.assert_allclose(summed.numpy(), whole_t.numpy(), rtol=1e-15, atol=0)
+    stats_g = rk._launch_edge_finalize(lib, summed, halves[0][1], 0)
+    stats_w = rk._launch_edge_finalize(lib, whole_t, whole_stats, 0)
+    assert float(stats_g[4]) == float(stats_w[4]) == hr.numel()
+    assert _ulps(stats_g[:2], stats_w[:2]) <= 1
+
+    sums_w, losses_w = rk._launch_sums_totals(lib, hr, sr, stats_w, vec, 0)
+    parts = [rk._launch_sums_totals(lib, hr[i:i + 1].contiguous(),
+                                    sr[i:i + 1].contiguous(), stats_g, vec, 0)
+             for i in (0, 1)]
+    summed = parts[0][0] + parts[1][0]
+    np.testing.assert_allclose(summed.numpy(), sums_w.numpy(), rtol=1e-12, atol=0)
+    loss_g = rk._launch_sums_finalize(lib, summed, stats_g, parts[0][1], 0)
+    loss_w = rk._launch_sums_finalize(lib, sums_w, stats_w, losses_w, 0)
+    assert float(stats_w[3]) > 0
+    for a, b in zip(loss_g, loss_w):
+        assert _ulps(a.reshape(1), b.reshape(1)) <= 1
+    assert _ulps(stats_g[2:4], stats_w[2:4]) <= 1
+
+    g = (torch.tensor(1.0), torch.tensor(0.5))
+    d_w = rk._launch_loss_grad(lib, hr, sr, stats_w, *g, vec, 0)
+    d_g = torch.cat([rk._launch_loss_grad(lib, hr[i:i + 1].contiguous(),
+                                          sr[i:i + 1].contiguous(), stats_g, *g, vec, 0)
+                     for i in (0, 1)])
+    err = float((d_g - d_w).abs().max())
+    assert err <= 1e-6 * float(d_w.abs().max()), f"dsr max|Δ| {err:.3e}"

@@ -258,15 +258,24 @@ class TestCLI:
         assert ckpt.load_model_config(str(results), "Training").compute_dtype == "bfloat16"
 
     @pytest.mark.parametrize("flag,exc,item", [
-        (["--profile-dir", "trace"], NotImplementedError, "item 11"),
-        (["--multihost"], NotImplementedError, "item 10"),
+        (["--profile-dir", "trace", "--perceptual-encoder", "e.npz"], ValueError,
+         "perceptual_weight"),
+        (["--multihost"], RuntimeError, "MASTER_ADDR"),
         (["--pool-exec", "vmap"], NotImplementedError, "item 7"),
         (["--perceptual-encoder", "e.npz"], ValueError, "perceptual_weight"),
     ], ids=["profile_dir", "multihost", "pool_exec_vmap", "perceptual"])
-    def test_unported_flags_name_roadmap(self, tmp_path, flag, exc, item):
-        """Each unported flag names its ROADMAP item. The perceptual prior
-        is ported: a feature prior given with --perceptual 0 raises the JAX
-        CLI's ValueError."""
+    def test_unported_flags_name_roadmap(self, tmp_path, flag, exc, item, monkeypatch):
+        """The one unported flag, --pool-exec vmap, names its ROADMAP item.
+        --profile-dir is ported: the run goes on to the Trainer, which
+        refuses a feature prior given with --perceptual 0 (the JAX CLI's
+        ValueError), as it does without the flag; --multihost is ported and
+        names torchrun's variables where they are missing (the trace and a
+        2-process run: ``tests/test_torch_parallel.py``,
+        ``tests/test_torch_multiprocess.py``)."""
+        from srgan_tpu_torch.parallel.mesh import ENV_VARS
+
+        for var in ENV_VARS:
+            monkeypatch.delenv(var, raising=False)
         with pytest.raises(exc, match=item):
             cli.main(["train", "--results-dir", str(tmp_path), "--device", "cpu",
                       *flag])

@@ -487,13 +487,13 @@ def test_upscale_directory_skips_an_unwritable_file(tmp_path, rng, capsys):
 
 
 def test_resize_weight_cache_is_bounded():
-    resize._triangle_weights.cache_clear()
-    resize._triangle_weights_np.cache_clear()
+    resize._weights.cache_clear()
+    resize._weights_np.cache_clear()
     x = torch.rand(1, 6, 5, 3)
     first = resize.resize_bilinear(x, (4, 5))
     for h in range(2, 2 + resize.WEIGHT_CACHE_SIZE + 20):
         resize.resize_bilinear(x, (h, 5))
-    for fn in (resize._triangle_weights, resize._triangle_weights_np):
+    for fn in (resize._weights, resize._weights_np):
         info = fn.cache_info()
         assert info.maxsize == resize.WEIGHT_CACHE_SIZE == 64
         assert info.currsize <= info.maxsize
