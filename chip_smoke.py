@@ -146,9 +146,29 @@ Phases, each of which must pass (any failure exits non-zero):
      (native, or PIL with the native build's first error line) and its
      img/s; ``upscale --dp`` (every visible card)
      writes the plain path's output.
+  16. the vmap pool executor (after phase 12): K2 and K3 over a member axis
+     at (N=3, 12, 512, 1024, 3) f32, each member bit-identical to the
+     single launch on its sr and within the kernel phase's bars of the
+     pooled plain version (float64), one pooled launch timed against three
+     single ones; JAX's vmap-against-scan steps at their small sizes (one
+     pixel step, N=3, and one fused GAN step, N=2), vmap against scan on
+     the card and against the vmap step on the CPU, fp32 and bf16, with
+     functorch's per-member fallback switched off (K1-K3 once a vmap step,
+     once a member a scan step); the flagship pool of 3, bf16, batch 12,
+     pixel and GAN, vmap beside scan (ms/step, img/s, peak memory, launches
+     a step: vmap 1/1/1, scan 3/3/3; a profiled epoch of each pixel run);
+     the vmap GAN run twice over 2 epochs, bit-identical;
+  17. W-sharded inference (``parallel/spatial.py``): the flagship generator
+     on the LR 1080x1920 frame, fp32 and bf16, without a group and under a
+     one-rank NCCL group, against the model's own forward, with ms;
+  18. the space-to-depth trunk (``models/s2d_trunk.py``) at
+     ``scripts/s2d_trunk_probe.py``'s defaults: ``s2d_trunk`` against
+     ``fine_trunk`` (outputs and gradients) in fp32 and bf16, ms/step of
+     each in bf16 and the device time of one step of each by group.
 
-It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line. It exits non-zero without a result where CUDA is unavailable or the
+It prints a ``{"kernels": [...]}`` line (K2's and K3's records carry their
+member-axis launch under ``"pooled"``, and the vmap runs' launches in
+``launches_by_path``) and, last, the ``{"ok": true, ...}`` line. It exits non-zero without a result where CUDA is unavailable or the
 package is missing. The script imports nothing of JAX or ``srgan_tpu``.
 """
 
@@ -453,9 +473,9 @@ def moments_rel_err(got, want) -> float:
     network each (after one step: the gradients' agreement)."""
     worst = 0.0
     for a, b in zip(got, want):
-        d2 = sum(float(((x.cpu().double() - y.double()) ** 2).sum())
+        d2 = sum(float(((x.cpu().double() - y.cpu().double()) ** 2).sum())
                  for x, y in zip(a.mu, b.mu))
-        n2 = sum(float((y.double() ** 2).sum()) for y in b.mu)
+        n2 = sum(float((y.cpu().double() ** 2).sum()) for y in b.mu)
         check(n2 > 0, "moments: all 0 on the CPU")
         worst = max(worst, math.sqrt(d2 / n2))
     return worst
@@ -593,7 +613,7 @@ class Flagship:
     def __init__(self, dev, compute_dtype: str, batch: int, clips, results_dir: str,
                  layout: str = "default", n_gen: int = 1, gan: bool = False,
                  steps: int = FLAGSHIP_STEPS, train: dict | None = None, tag: str = "",
-                 data: dict | None = None):
+                 data: dict | None = None, member_exec: str = "scan"):
         from srgan_tpu_torch.config import (Config, DataConfig, DiscriminatorConfig,
                                             ModelConfig, PoolConfig, TrainConfig)
         from srgan_tpu_torch.data.dataset import ArrayDataset
@@ -602,15 +622,19 @@ class Flagship:
 
         self.tag = f"{compute_dtype} batch {batch}" + (
             " channels_last" if layout == "channels_last" else "") + (
-            f" pool {n_gen}" if n_gen > 1 else "") + (" gan" if gan else "") + tag
+            f" pool {n_gen}" if n_gen > 1 else "") + (
+            f" {member_exec}" if member_exec != "scan" else "") + (" gan" if gan else "") + tag
         self.batch = batch
         self.steps = steps
-        self.per_step = n_gen  # K1-K3 launches a step: once a member
+        # K1-K3 launches a step: once a member, or once for all (vmap)
+        self.vmap = member_exec == "vmap" and n_gen > 1
+        self.per_step = 1 if self.vmap else n_gen
         cfg = Config(
             model=ModelConfig(compute_dtype=compute_dtype),
             discriminator=DiscriminatorConfig(compute_dtype=compute_dtype),
             data=DataConfig(batch_size=batch, device_cache="on", **(data or {})),
-            pool=PoolConfig(num_generators=n_gen, **({"p_gan_above": 1.0} if gan else {})),
+            pool=PoolConfig(num_generators=n_gen, member_exec=member_exec,
+                            **({"p_gan_above": 1.0} if gan else {})),
             train=TrainConfig(progress="off", score_max_batches=1,
                               results_dir=results_dir, use_gan=gan, **(train or {})),
         )
@@ -653,8 +677,11 @@ class Flagship:
         torch.cuda.reset_peak_memory_stats()
         rk.reset_launches()
         m, dt = self.epoch()
-        counts, paths = dict(rk.launches), dict(rk.paths)
+        counts, paths, pooled = dict(rk.launches), dict(rk.paths), dict(rk.pooled)
         peak = torch.cuda.max_memory_allocated()
+        want_pooled = self.steps if self.vmap else 0
+        check(all(v == want_pooled for v in pooled.values()),
+              f"{self.tag}: member-axis launches {pooled}, expected {want_pooled} each")
         for name in LOSS_KERNELS:
             check(counts[name] == want,
                   f"{self.tag}: {name} launched {counts[name]} times in "
@@ -783,6 +810,15 @@ def gan_training_phase(rk, dev) -> dict:
     return out
 
 
+def _by_group(by_name: dict) -> dict:
+    """Device time by kernel name summed by ``PROFILE_GROUPS`` group."""
+    groups: dict = {}
+    for name, t in by_name.items():
+        group = next((g for g, rx in PROFILE_GROUPS if rx.search(name)), "other")
+        groups[group] = groups.get(group, 0.0) + t
+    return groups
+
+
 def profile_epoch(trainer, pipe, steps: int, tag: str) -> tuple:
     """Where the time goes: one more epoch under torch.profiler. Device
     time by kernel, the loss kernels' share and the device's idle share
@@ -802,10 +838,7 @@ def profile_epoch(trainer, pipe, steps: int, tag: str) -> tuple:
           f"{busy / 1e3:.1f} ms (idle share {1 - busy / wall_us:.3f}); loss "
           f"kernels K1-K3 {loss / 1e3:.3f} ms ({loss / busy:.4f} of busy)",
           flush=True)
-    groups: dict = {}
-    for name, us in by_name.items():
-        group = next((g for g, rx in PROFILE_GROUPS if rx.search(name)), "other")
-        groups[group] = groups.get(group, 0.0) + us
+    groups = _by_group(by_name)
     print(f"profile {tag}: ms/step by group: " + "; ".join(
         f"{g} {us / 1e3 / steps:.3f} ({us / busy:.3f})"
         for g, us in sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
@@ -2091,6 +2124,455 @@ def trace_phase(rk, dev, flags: list, root: str) -> dict:
     return counts
 
 
+POOL_N = 3  # members of the vmap phase's pooled kernels and flagship pool
+
+
+def _member_inputs(dev):
+    """The kernel phase's hr and sr, and POOL_N - 1 more members' sr on the
+    same 1/256 grid: (hr, srs (N, 12, 512, 1024, 3))."""
+    hr, sr = loss_inputs(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    more = [torch.randint(0, 256, LOSS_SHAPE, generator=g, device=dev).float() / 256.0
+            for _ in range(POOL_N - 1)]
+    return hr, torch.stack([sr, *more])
+
+
+def loss_device_ms(fn, reps: int = 20) -> dict:
+    """Device ms a call of ``fn`` by loss kernel symbol (all its launches),
+    from the profiler over ``reps`` calls, after a session that starts the
+    profiler's device tracing."""
+    with profile(activities=[ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in _device_events(prof):
+        m = LOSS_KERNEL_RE.search(e.name)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    return out
+
+
+def pooled_kernel_phase(rk, dev) -> dict:
+    """K2 and K3 over the member axis at (N=3, 12, 512, 1024, 3) f32: each
+    member bit-identical to the single-member launch on its sr; against the
+    pooled plain version in float64 (losses and stats rel 1e-4, d/d sr
+    1e-3·max|g| a member); one pooled launch timed against three single
+    ones, in turns, by CUDA events and by device time."""
+    hr, srs = _member_inputs(dev)
+    n = hr.numel()
+    ge = torch.tensor([1.0, 0.5, -1.5], device=dev)
+    gt = torch.tensor([1.0, -2.0, 0.25], device=dev)
+    stats = rk.edge_stats(hr)
+    edge, tv, rows = rk.loss_sums_pooled(hr, srs, stats)
+    dsr = rk.loss_grad_pooled(hr, srs, rows, ge, gt)
+    singles = [stats.clone() for _ in range(POOL_N)]
+    for i in range(POOL_N):
+        e_i, t_i = rk.loss_sums(hr, srs[i], singles[i])
+        d_i = rk.loss_grad(hr, srs[i], singles[i], ge[i], gt[i])
+        torch.cuda.synchronize()
+        check(torch.equal(edge[i], e_i) and torch.equal(tv[i], t_i)
+              and torch.equal(rows[i], singles[i]),
+              f"pooled K2: member {i} differs from the single launch")
+        check(torch.equal(dsr[i], d_i), f"pooled K3: member {i} differs from the single launch")
+    del d_i
+    check(bool((rows[:, 3] > 0).all()), f"pooled: tv means {rows[:, 3].tolist()}: a TV term is gated")
+    hr64, srs64 = hr.double(), srs.double()
+    st64 = rk.edge_stats_plain(hr64)
+    e_p, t_p, rows_p = rk.loss_sums_pooled_plain(hr64, srs64, st64)
+    l_err = float(max(((edge.double() - e_p) / e_p).abs().max(),
+                      ((tv.double() - t_p) / t_p).abs().max(),
+                      ((rows.double() - rows_p) / rows_p).abs().max()))
+    check(l_err <= 1e-4, f"pooled K2 against plain: rel err {l_err} > 1e-4")
+    g_p = rk.loss_grad_pooled_plain(hr64, srs64, rows_p, ge.double(), gt.double())
+    d_err = max(float((dsr[i].double() - g_p[i]).abs().max() / g_p[i].abs().max())
+                for i in range(POOL_N))
+    check(d_err <= 1e-3, f"pooled K3 against plain: max|d dsr| {d_err}·max|g| > 1e-3")
+    max_abs = {"loss_sums": float(max((edge.double() - e_p).abs().max(),
+                                      (tv.double() - t_p).abs().max())),
+               "loss_grad": float((dsr.double() - g_p).abs().max())}
+    del hr64, srs64, g_p, dsr
+    print(f"pooled kernels at N={POOL_N} x {LOSS_SHAPE} f32: every member's losses, stats "
+          f"and d/d sr bit-identical to the single launches; against the float64 pooled "
+          f"plain version: losses and stats rel {l_err:.2e}, d/d sr {d_err:.2e}*max", flush=True)
+
+    fns = {"loss_sums": (lambda: rk.loss_sums_pooled(hr, srs, stats),
+                         lambda: [rk.loss_sums(hr, srs[i], singles[i]) for i in range(POOL_N)]),
+           "loss_grad": (lambda: rk.loss_grad_pooled(hr, srs, rows, ge, gt),
+                         lambda: [rk.loss_grad(hr, srs[i], rows[i], ge[i], gt[i])
+                                  for i in range(POOL_N)])}
+    # each input read once, each output written once; K3 writes N dsr
+    n_bytes = {"loss_sums": (1 + POOL_N) * n * 4, "loss_grad": (1 + 2 * POOL_N) * n * 4}
+    out = {}
+    for name, (pooled, three) in fns.items():
+        runs = [time_ms(fn, windows=5, reps=10) for fn in (pooled, three, three, pooled)]
+        dev_p, dev_3 = loss_device_ms(pooled), loss_device_ms(three)
+        t_bytes = n_bytes[name] / HBM_BYTES_PER_S * 1e3
+        t_ops = POOL_N * n * OPS_PER_ELEMENT[name] / FP32_OPS_PER_S * 1e3
+        rec = {"ms": statistics.median(runs[0] + runs[3]),
+               "three_single_ms": statistics.median(runs[1] + runs[2]),
+               "device_ms": sum(dev_p.values()), "three_single_device_ms": sum(dev_3.values()),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "max_abs_err": max_abs[name], "device_ms_by_kernel": dev_p}
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        out[name] = rec
+        print(f"pooled kernel {name} N={POOL_N}: one launch {rec['ms']:.4f} ms by events "
+              f"(device {rec['device_ms']:.4f}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in dev_p.items())
+              + f"), three single launches {rec['three_single_ms']:.4f} ms (device "
+              f"{rec['three_single_device_ms']:.4f}); bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), {rec['bound_share']:.3f} of it", flush=True)
+    return out
+
+
+def _vmap_members(cd: str, n: int, dev, norm: str = "none"):
+    """JAX's vmap-against-scan members (``tests/test_stacked_pool.py``: F=8,
+    1 block, 2x), seeds 0..n-1."""
+    from srgan_tpu_torch.config import ModelConfig
+    from srgan_tpu_torch.models.srresnet import init_generator
+    from srgan_tpu_torch.training.train_state import TrainState
+
+    cfg = ModelConfig(num_features=8, num_residuals=1, upscale_factor=2, norm=norm,
+                      compute_dtype=cd)
+    return [TrainState(init_generator(cfg, seed=i, device=dev)) for i in range(n)]
+
+
+def _margin(a, b, rtol: float, atol: float) -> float:
+    """max(|a − b| − atol − rtol·|b|): ≤ 0 where ``a`` is within the bar."""
+    a, b = a.detach(), b.detach().to(a.device)
+    return float(((a - b).abs() - atol - rtol * b.abs()).max())
+
+
+# Adam's first step moves a weight by lr·g/(|g| + 1e-8): where |g| is within
+# 100 eps of 0, the two executors' rounding of g moves it by up to ±lr
+EPS_REGIME = 1e-6
+
+
+def _params_margin(got, want) -> tuple:
+    """``_margin`` of the params after one step (rtol 2e-4, atol 1e-6) over
+    the elements whose gradient (10·mu after one step) is at least
+    ``EPS_REGIME``, and the count of those left out."""
+    worst, left_out = -math.inf, 0
+    for x, y in zip(got, want):
+        for p, q, mu in zip(x.params, y.params, y.mu):
+            keep = (10 * mu).abs() >= EPS_REGIME
+            left_out += int((~keep).sum())
+            if keep.any():
+                worst = max(worst, _margin(p[keep], q[keep], 2e-4, 1e-6))
+    return worst, left_out
+
+
+def vmap_small_phase(rk, dev) -> None:
+    """JAX's vmap-against-scan tests (``tests/test_stacked_pool.py:151-255``)
+    on the card: one pixel step (N=3, HR 16x16) and one fused GAN step
+    (N=2, HR 64x64, mask [1, 1], D of 2 stages at 8 filters on member 1's
+    SR) of the vmap executor against the scan executor, norm="none", and
+    against the vmap step on the CPU, in fp32 and bf16. Bars, fp32 against
+    scan (JAX's): losses rtol 1e-5 / atol 1e-7, member 1's SR rtol 1e-5 /
+    atol 1e-6, Adam moments rtol 2e-4 / atol 1e-6, params the same where the
+    gradient is not within ``EPS_REGIME`` of 0 (counted); bf16 against
+    scan and both dtypes against the CPU, the card-against-CPU bars of
+    phases 3 and 5 (pixel losses rel 1e-4 / 2e-2, adversarial ADV_ATOL,
+    moments GRAD_RTOL). K1-K3 launch once a vmap step (K2/K3 on the member
+    axis) and once a member a scan step. No op may fall back to functorch's
+    per-member loop."""
+    from srgan_tpu_torch.config import DiscriminatorConfig
+    from srgan_tpu_torch.models.discriminator import init_discriminator
+    from srgan_tpu_torch.training import stacked_pool as sp
+    from srgan_tpu_torch.training.train_state import TrainState
+
+    t0 = time.perf_counter()
+    fx = torch._C._functorch
+    fx._set_vmap_fallback_enabled(False)
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    inputs = {"pixel": [rng.random((2, 16, 16, 3), dtype=np.float32),
+                        rng.random((2, 8, 8, 3), dtype=np.float32)],
+              "gan": [rng.random((2, 64, 64, 3), dtype=np.float32),
+                      rng.random((2, 32, 32, 3), dtype=np.float32)]}
+    try:
+        for cd in ("float32", "bfloat16"):
+            fp32 = cd == "float32"
+            for kind in ("pixel", "gan"):
+                n = 3 if kind == "pixel" else 2
+                res = {}
+                for ex, d in (("vmap", dev), ("scan", dev), ("vmap cpu", cpu)):
+                    members = _vmap_members(cd, n, d)
+                    hr, lr_imgs = (torch.from_numpy(a).to(d) for a in inputs[kind])
+                    sr1 = members[1].model(lr_imgs).detach()
+                    rk.reset_launches()
+                    if kind == "pixel" and ex == "scan":
+                        members, m = sp.scanned_pool_step(members, hr, lr_imgs, 1e-3)
+                    elif kind == "pixel":
+                        members, m = sp.stacked_pool_step(members, hr, lr_imgs, 1e-3,
+                                                          return_sr=True, d_target_idx=1)
+                    else:
+                        d_cfg = DiscriminatorConfig(num_filters=8, num_stages=2, compute_dtype=cd)
+                        d_state = TrainState(init_discriminator(d_cfg, seed=9, device=d))
+                        step = (sp.stacked_pool_gan_step if ex.startswith("vmap")
+                                else sp.scanned_pool_gan_step)
+                        members, d_state, m = step(members, d_state, hr, lr_imgs,
+                                                   np.ones(n, np.float32), 1e-3, 1e-3,
+                                                   d_target_idx=1)
+                        members = [*members, d_state]
+                    if d.type == "cuda":
+                        torch.cuda.synchronize()
+                    res[ex] = (m, members, sr1, dict(rk.launches), dict(rk.pooled))
+                (m_v, st_v, _, c_v, p_v), (m_s, st_s, sr_s, c_s, _) = res["vmap"], res["scan"]
+                m_c, st_c = res["vmap cpu"][:2]
+                check(all(c_v[k] == 1 for k in LOSS_KERNELS) and p_v == {"loss_sums": 1, "loss_grad": 1},
+                      f"vmap {kind} {cd}: launches {c_v}, member-axis {p_v}; expected 1 each")
+                check(all(c_s[k] == n for k in LOSS_KERNELS),
+                      f"scan {kind} {cd}: launches {c_s}; expected {n} each")
+                px_keys = ["com_loss", "tv_loss", "g_loss"]
+                adv_keys = ["g_d_loss", "d_loss"] if kind == "gan" else []
+                # against scan: JAX's bars in fp32; the card-against-CPU bars in bf16
+                if fp32:
+                    l_m = max(_margin(m_v[k], m_s[k], 1e-5, 1e-7) for k in px_keys + adv_keys)
+                else:
+                    l_m = max([_margin(m_v[k], m_s[k], 2e-2, 0.0) for k in px_keys]
+                              + [_margin(m_v[k], m_s[k], 0.0, ADV_ATOL[cd]) for k in adv_keys])
+                check(l_m <= 0, f"vmap {kind} {cd} against scan: a loss beyond its bar by {l_m:.2e}")
+                c_m = max([_margin(m_v[k].cpu(), m_c[k], 1e-4 if fp32 else 2e-2, 0.0)
+                           for k in px_keys]
+                          + [_margin(m_v[k].cpu(), m_c[k], 0.0, ADV_ATOL[cd]) for k in adv_keys])
+                check(c_m <= 0, f"vmap {kind} {cd} card against CPU: a loss beyond its bar by "
+                                f"{c_m:.2e}")
+                g_c = moments_rel_err(st_v, st_c)
+                check(g_c <= GRAD_RTOL[cd], f"vmap {kind} {cd} card against CPU: moments rel "
+                      f"{g_c:.2e} > {GRAD_RTOL[cd]}")
+                if fp32:
+                    worst = max(_margin(p, q, 2e-4, 1e-6) for x, y in zip(st_v, st_s)
+                                for p, q in zip(x.mu + x.nu, y.mu + y.nu))
+                    check(worst <= 0, f"vmap {kind} fp32 against scan: Adam moments "
+                                      f"beyond rtol 2e-4 / atol 1e-6 by {worst:.2e}")
+                    p_m, n_eps = _params_margin(st_v, st_s)
+                    check(p_m <= 0, f"vmap {kind} fp32 against scan: params beyond rtol "
+                                    f"2e-4 / atol 1e-6 by {p_m:.2e}")
+                    detail = (f"moments margin {worst:.2e}, params margin {p_m:.2e} "
+                              f"({n_eps} elements with |g| < {EPS_REGIME:g} left out)")
+                    if kind == "pixel":  # member 1's pre-update SR, the D handoff
+                        sr_m = _margin(m_v["sr"], sr_s, 1e-5, 1e-6)
+                        check(sr_m <= 0, f"vmap pixel fp32: member 1's SR beyond rtol 1e-5 / "
+                                         f"atol 1e-6 by {sr_m:.2e}")
+                        detail += f", member 1's SR margin {sr_m:.2e}"
+                else:
+                    g_s = moments_rel_err(st_v, st_s)
+                    check(g_s <= GRAD_RTOL[cd], f"vmap {kind} bf16 against scan: moments rel "
+                          f"{g_s:.2e} > {GRAD_RTOL[cd]}")
+                    detail = f"moments rel {g_s:.2e} (bar {GRAD_RTOL[cd]})"
+                print(f"vmap small {kind} {cd} N={n}: against scan, losses margin {l_m:.2e}, "
+                      f"{detail}; card against CPU, losses margin {c_m:.2e}, moments rel "
+                      f"{g_c:.2e}; launches vmap {c_v} (member axis {p_v}), scan {c_s}",
+                      flush=True)
+    finally:
+        fx._set_vmap_fallback_enabled(True)
+    print(f"vmap small: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def vmap_flagship_phase(rk, dev, scan_gan: dict) -> dict:
+    """The pool of 3 at the flagship size, batch 12, bf16, through
+    ``Trainer.train_epoch``: the vmap executor (pixel, then GAN) beside the
+    scan executor (pixel here; GAN from the GAN phase's run of the same
+    config, ``scan_gan``), each a warm-up and a counted epoch of 3 steps:
+    ms/step, img/s, peak memory, launches a step (vmap 1/1/1, K2/K3 on the
+    member axis; scan 3/3/3). Then the vmap GAN run again from the same
+    seeds: two runs of 2 epochs, every network's params and Adam moments
+    and the losses bit-identical under the deterministic mode."""
+    t0 = time.perf_counter()
+    clips = smooth_clips(dev, FLAGSHIP_STEPS * 12, 1)
+    out = {}
+    with tempfile.TemporaryDirectory() as results_dir:
+        for name, ex, gan in (("vmap pool 3", "vmap", False), ("scan pool 3", "scan", False),
+                              ("vmap pool 3 gan", "vmap", True),
+                              ("vmap pool 3 gan again", "vmap", True)):
+            torch.cuda.empty_cache()
+            run = Flagship(dev, "bfloat16", 12, clips, results_dir, n_gen=POOL_N, gan=gan,
+                           member_exec=ex)
+            try:
+                if name.endswith("again"):
+                    m, _ = run.epoch()
+                    rec = {"metrics": m}
+                else:
+                    rec = out[name] = run.counted(rk)
+                rec["state"] = _run_state(run)
+                if not gan:  # where the pixel step's time goes, each executor
+                    profile_epoch(run.trainer, run.pipe, FLAGSHIP_STEPS, run.tag)
+            finally:
+                run.close()
+                del run
+        first, again = out["vmap pool 3 gan"], rec
+        losses = [{k: v for k, v in r["metrics"].items() if k.endswith("loss")}
+                  for r in (first, again)]
+        check(_bit_equal(first.pop("state"), again["state"]) and losses[0] == losses[1],
+              f"vmap determinism: two flagship bf16 pool-of-3 GAN runs differ: {losses}")
+        out["vmap pool 3"].pop("state")
+        out["scan pool 3"].pop("state")
+    for kind, v, s in (("pixel", out["vmap pool 3"], out["scan pool 3"]),
+                       ("gan", out["vmap pool 3 gan"], scan_gan)):
+        per = {ex: "/".join(str(r["counts"][k] // FLAGSHIP_STEPS) for k in LOSS_KERNELS)
+               for ex, r in (("vmap", v), ("scan", s))}
+        check(per == {"vmap": "1/1/1", "scan": f"{POOL_N}/{POOL_N}/{POOL_N}"},
+              f"vmap flagship {kind}: K1/K2/K3 launches a step {per}")
+        print(f"vmap flagship bf16 pool {POOL_N} {kind} batch 12: vmap {v['step_ms']:.2f} "
+              f"ms/step ({12e3 / v['step_ms']:.2f} img/s, peak {v['peak_gib']:.2f} GiB) against "
+              f"scan {s['step_ms']:.2f} ms/step ({12e3 / s['step_ms']:.2f} img/s, peak "
+              f"{s['peak_gib']:.2f} GiB): vmap/scan {v['step_ms'] / s['step_ms']:.3f}; K1/K2/K3 "
+              f"launches a step vmap {per['vmap']}, scan {per['scan']}", flush=True)
+    print(f"vmap determinism flagship bf16 pool {POOL_N} gan, 2 epochs twice: params and "
+          f"Adam moments of {POOL_N} generators and D and the losses bit-identical; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def spatial_phase(dev) -> dict:
+    """``parallel.spatial.upscale_spatially_sharded`` on the flagship
+    generator (F=64, 16 blocks, 4x, seed 0) and the serving phase's LR
+    1080x1920 frame, in fp32 and bf16: without a group and under a
+    one-rank NCCL group (both the plain forward, by contract), against the
+    model's own forward. Bars: fp32 1e-5·max|y|, bf16 2e-2·max|y| (the CPU
+    tests' bf16 serving bar). One card holds one rank: the halo exchange
+    across ranks runs in the CPU tests only."""
+    import torch.distributed as dist
+
+    from srgan_tpu_torch.config import ModelConfig
+    from srgan_tpu_torch.models.srresnet import init_generator
+    from srgan_tpu_torch.parallel import mesh
+    from srgan_tpu_torch.parallel.spatial import upscale_spatially_sharded
+
+    t0 = time.perf_counter()
+    frame = smooth_clips(dev, 1, 12, hw=TILED_LR)[0].astype(np.float32) / 255.0
+    saved_env = dict(os.environ)
+    os.environ.update(_torchrun_env(_free_port()))
+    mesh.initialize_multihost()
+    out = {}
+    try:
+        group = mesh.default_group()
+        for cd, bar in (("float32", 1e-5), ("bfloat16", 2e-2)):
+            model = init_generator(ModelConfig(compute_dtype=cd), seed=0, device=dev).eval()
+            x = torch.from_numpy(frame).to(dev)[None]
+
+            def plain():
+                with torch.no_grad():
+                    return model(x)[0].cpu().numpy()
+
+            timed = {}
+            for name, fn in (("plain", plain),
+                             ("no group", lambda: upscale_spatially_sharded(model, frame)),
+                             ("world 1", lambda: upscale_spatially_sharded(model, frame, group))):
+                fn()  # warm-up
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                y = fn()
+                timed[name] = (y, (time.perf_counter() - t) * 1e3)
+            want = timed["plain"][0]
+            scale = float(np.abs(want).max())
+            errs = {k: float(np.abs(v[0] - want).max()) for k, v in timed.items() if k != "plain"}
+            check(want.shape == (4 * TILED_LR[0], 4 * TILED_LR[1], 3) and np.isfinite(want).all(),
+                  f"spatial {cd}: output {want.shape}")
+            check(all(e <= bar * scale for e in errs.values()),
+                  f"spatial {cd}: max|Δ| {errs} > {bar}·max|y| = {bar * scale:.3e}")
+            out[cd] = {k: v[1] for k, v in timed.items()}
+            print(f"spatial {cd} LR {TILED_LR}: upscale_spatially_sharded without a group "
+                  f"{timed['no group'][1]:.1f} ms, one-rank NCCL group {timed['world 1'][1]:.1f} "
+                  f"ms, the model's forward {timed['plain'][1]:.1f} ms (host copy included); "
+                  f"max|Δ| {errs} (bar {bar}·max|y| = {bar * scale:.2e})", flush=True)
+            del model, x, timed
+    finally:
+        dist.destroy_process_group()
+        os.environ.clear()
+        os.environ.update(saved_env)
+    print(f"spatial: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+S2D_BATCH, S2D_LR = 24, (128, 256)  # scripts/s2d_trunk_probe.py's defaults
+
+
+def device_ms_by_group(fn, tag: str) -> dict:
+    """Device ms of one call of ``fn`` by ``PROFILE_GROUPS`` group, and its
+    top kernels, from the profiler (after an unprofiled call)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in _device_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    groups = _by_group(by_name)
+    busy = sum(groups.values())
+    print(f"profile {tag}: device busy {busy:.2f} ms; by group: " + "; ".join(
+        f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"profile {tag}:   {ms:9.3f} ms  {name[:100]}")
+    return groups
+
+
+def s2d_phase(dev) -> dict:
+    """``models/s2d_trunk.py`` at ``scripts/s2d_trunk_probe.py``'s defaults
+    (batch 24, LR 128x256, F=64, 16 blocks, bf16, with gradients: the
+    gradient of mean(trunk(x)²) in the trunk's params): ``s2d_trunk``
+    against ``fine_trunk`` on the same model, outputs and the whole trunk's
+    gradient, in fp32 (‖Δ‖/‖ref‖ ≤ 1e-4 output, 1e-3 gradient: the fold is exact, the
+    sums' order is not) and bf16 (2e-2 and 5e-2: two roundings of 16
+    blocks); ms/step of each in turns (fine, s2d, s2d, fine, 5 steps
+    each)."""
+    from srgan_tpu_torch.config import ModelConfig
+    from srgan_tpu_torch.models.s2d_trunk import fine_trunk, s2d_trunk
+    from srgan_tpu_torch.models.srresnet import init_generator
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand((S2D_BATCH, *S2D_LR, ModelConfig().num_features), generator=g, device=dev)
+    out = {}
+    for cd, bars in (("float32", (1e-4, 1e-3)), ("bfloat16", (2e-2, 5e-2))):
+        model = init_generator(ModelConfig(compute_dtype=cd), seed=0, device=dev)
+        params = [p for n, p in model.named_parameters() if n.startswith(("blocks.", "mid."))]
+
+        def step(trunk):
+            y = trunk(model, x)
+            return y, torch.autograd.grad(y.float().square().sum() / x.numel(), params)
+
+        (y_f, g_f), (y_s, g_s) = step(fine_trunk), step(s2d_trunk)
+        y_err = float((y_s.float() - y_f.float()).detach().norm() / y_f.float().detach().norm())
+        # on the whole trunk's gradient: the convs' biases before a GroupNorm
+        # have a true gradient of 0, each alone only rounding
+        g_err = math.sqrt(sum(float((a - b).double().square().sum()) for a, b in zip(g_s, g_f))
+                          / sum(float(b.double().square().sum()) for b in g_f))
+        check(y_err <= bars[0] and g_err <= bars[1],
+              f"s2d {cd}: s2d against fine trunk: output {y_err:.2e} (bar {bars[0]}), "
+              f"gradients {g_err:.2e} (bar {bars[1]})")
+        del y_f, g_f, y_s, g_s
+        times = {"fine": [], "s2d": []}
+        if cd == "bfloat16":
+            for name, trunk in (("fine", fine_trunk), ("s2d", s2d_trunk), ("s2d", s2d_trunk),
+                                ("fine", fine_trunk)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(5):
+                    step(trunk)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) / 5 * 1e3)
+            out = {k: statistics.mean(v) for k, v in times.items()}
+            for name, trunk in (("fine", fine_trunk), ("s2d", s2d_trunk)):
+                device_ms_by_group(lambda: step(trunk), f"s2d {cd} {name} trunk step")
+        print(f"s2d {cd} batch {S2D_BATCH} LR {S2D_LR} {len(model.blocks)} blocks: s2d "
+              f"against fine "
+              f"output rel {y_err:.2e} (bar {bars[0]}), gradients rel {g_err:.2e} (bar "
+              f"{bars[1]})" + ("" if cd == "float32" else
+                               "; ms/step fine " + " / ".join(f"{t:.2f}" for t in times["fine"])
+                               + ", s2d " + " / ".join(f"{t:.2f}" for t in times["s2d"])
+                               + f"; s2d/fine {out['s2d'] / out['fine']:.3f}"), flush=True)
+        del model, params
+    print(f"s2d: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2126,6 +2608,11 @@ def main() -> int:
     gan = gan_training_phase(rk, dev)
     det = determinism_phase(rk, dev, gan["pool gan flagship"])
     multihost = multihost_phase(rk, dev, det)
+    pooled = pooled_kernel_phase(rk, dev)
+    vmap_small_phase(rk, dev)
+    vmap = vmap_flagship_phase(rk, dev, gan["pool gan flagship"])
+    spatial_phase(dev)
+    s2d_phase(dev)
     spots = input_phase(rk, dev)["counts"]
     with tempfile.TemporaryDirectory() as root:
         entry, res, flags = entry_point_phase(rk, dev, root)
@@ -2142,6 +2629,7 @@ def main() -> int:
     # and 2 of the perceptual pool of 3, and the serving phase (none)
     by_path = {"pixel fp32": counts, **{k: v["counts"] for k, v in gan.items()},
                "determinism pool 3 gan": det["counts"], "multihost world 1": multihost,
+               **{k: v["counts"] for k, v in vmap.items()},
                "salt and pepper": spots,
                **{f"entry point {k}": v for k, v in entry.items()}, "trace": traced,
                **{k: v["counts"] for k, v in perceptual.items()}, "serve": serve}
@@ -2157,6 +2645,8 @@ def main() -> int:
             "launches": counts[name],
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
             **rec,
+            # K2/K3's member-axis launch (the vmap pool executor) at N=3
+            "pooled": pooled.get(name),
             "registers": regs[0] if regs else None,
             "spill_bytes": regs[2] if regs else None,
             "library_ms": None,  # no single PyTorch call computes it

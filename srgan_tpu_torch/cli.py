@@ -17,9 +17,9 @@ serves on every visible CUDA device. ``train --multihost`` joins the
 process group ``torchrun`` describes (``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``; NCCL on the card, gloo with
 ``--device cpu``) and trains data-parallel, one rank a device;
-``--profile-dir`` writes a ``torch.profiler`` trace of the run there. The
-one flag whose feature is not ported raises naming its ROADMAP.md item:
-``--pool-exec vmap`` (item 7).
+``--profile-dir`` writes a ``torch.profiler`` trace of the run there;
+``--pool-exec vmap`` runs a pool's members in one vmapped region
+(``training/stacked_pool.py``) instead of the member loop.
 """
 
 from __future__ import annotations
@@ -69,8 +69,9 @@ def _add_train(sub):
                         "(only read while --starting-gan-loss is unset)")
     p.add_argument("--pool-exec", choices=("scan", "vmap"), default="scan",
                    help="stacked-pool executor (pools of more than one "
-                        "generator; vmap is not ported yet: ROADMAP.md "
-                        "queue 1, item 7)")
+                        "generator): scan, the member loop (one member's "
+                        "activations alive); vmap, all members in one "
+                        "region (N x activation memory, no --remat)")
     p.add_argument("--no-mutual", action="store_true",
                    help="disable the epoch-end weak-learns-from-strong "
                         "interpolation (readme.md:13)")
@@ -438,12 +439,6 @@ def _dp_devices(args):
 
 
 def _train(args):
-    if args.pool_exec == "vmap":
-        raise NotImplementedError(
-            "--pool-exec vmap: the vmap pool executor is not ported yet "
-            "(ROADMAP.md, queue 1, item 7: generator pool); scan computes "
-            "the same updates"
-        )
     import contextlib
 
     import torch

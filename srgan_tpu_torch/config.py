@@ -157,17 +157,12 @@ class PoolConfig:
     # (one fused step updates all members — the TPU-idiomatic layout,
     # SURVEY.md §2 EP row) instead of sequential per-member steps.
     stacked: bool = True
-    # How the stacked step executes the members. "scan" (default):
-    # ``lax.scan`` over the pool axis with each member's grad+Adam inside
-    # its own iteration — 1x activation memory (no remat), one compiled
-    # body (faster compiles), and the fused Pallas loss kernel engages (it
-    # can't batch under the member vmap). "vmap": all members in one
-    # interleaved differentiated region — maximum scheduler freedom at
-    # small shapes, but N x activations live at the backward; at flagship
-    # shapes the 3-member programs need ``--remat`` + batch 12 on v5e and
-    # fail to compile at batch 24, where scan runs 28.6 img/s (GAN) /
-    # 36.1 (pixel) vs vmap's 15-17 (GAN, b12+remat). Same update semantics
-    # either way (parity-tested).
+    # How the stacked step executes the members (training/stacked_pool.py).
+    # "scan" (default): a loop over the members, each one's gradient and
+    # Adam step in turn, one member's activations alive at a time. "vmap":
+    # all members in one torch.func.vmap region, N x activations alive at
+    # the backward (no remat), the loss kernels launched once over the
+    # member axis. Same update semantics either way (parity-tested).
     member_exec: str = "scan"  # "scan" | "vmap"
     # Which generator the shared discriminator trains against each batch.
     # "leader" (default): the current best member's SR — the README names

@@ -85,6 +85,19 @@
 // c_tv from the incoming gradients and the count from stats, in device
 // memory.
 //
+// The member axis (the vmap pool executor, srgan_tpu_torch/training/
+// stacked_pool.py): N generators' SR batches against one HR batch. K1 runs
+// once on hr (the shared edge map); K2 and K3 take a member index,
+// blockIdx.y, and each member's blocks run the single-member launch's
+// partition of its sr (same runs, same fixed-order fp64 sums, one partial a
+// block in its own stretch of the partials), so member i's losses and dsr
+// are the bits of a launch on sr[i] alone. The totals stage runs one block a
+// member, the finalise one thread a member: (N, 4) totals, (N, 5) stats
+// (K1's mean, std and count copied into every row, K2's Σe and TV mean per
+// member: the relu gate is a member's own), (N,) losses. K3 reads member
+// i's stats row and its cotangents g_edge[i], g_tv[i]. The single-member
+// entry points are the N = 1 launches of the same kernels.
+//
 // Plain C interface for ctypes (srgan_tpu_torch/ops/cuda/recon_loss_kernel.py).
 // Every entry point returns cudaGetLastError() after its launches.
 
@@ -428,10 +441,13 @@ edge_stats_kernel(const float* __restrict__ hr, int B, int H, int W, int run,
 // The totals stage of K1 and K2: the block partials summed in a fixed order
 // into K doubles, and the element count after them. A process group sums the
 // ranks' totals (fp64, in rank order) between this stage and the finalise.
+// One block a member (blockIdx.x): its n_blocks partials, its K + 1 totals.
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 partials_totals(const double* __restrict__ partials, int n_blocks, double count,
                 double* __restrict__ totals) {
+  partials += (int64_t)blockIdx.x * n_blocks * K;
+  totals += (int64_t)blockIdx.x * (K + 1);
   double v[K];
   sum_partials<K>(partials, n_blocks, v);
   if (threadIdx.x == 0) {
@@ -467,6 +483,9 @@ loss_sums_kernel(const float* __restrict__ hr, const float* __restrict__ sr,
   constexpr int kOut = 32 - 2 * kSumsHalo;
   const int lane = threadIdx.x % 32;
   const int rw = W * C;
+  // member blockIdx.y: its sr and its stretch of the partials
+  sr += (int64_t)blockIdx.y * B * H * rw;
+  partials += (int64_t)blockIdx.y * gridDim.x * 3;
   const float mean = stats[0], scale = 0.2f / stats[1];
   double v[3] = {0.0, 0.0, 0.0};
   for_each_stretch(B, H, run, bands, [&](int band, int b, int y0, int y1) {
@@ -514,17 +533,25 @@ loss_sums_kernel(const float* __restrict__ hr, const float* __restrict__ sr,
   store_partials<3>(partials, v);
 }
 
-// From K2's totals [sum |hr-sr|*e, sum e, sum tv, count].
+// From K2's totals [sum |hr-sr|*e, sum e, sum tv, count], one thread a
+// member: member m's stats row is K1's (base) with its own [2:4]. With one
+// member, base may be stats itself.
 __global__ void loss_sums_finalize(const double* __restrict__ totals,
-                                   float* __restrict__ stats,
+                                   const float* base, float* stats,
                                    float* __restrict__ edge_loss,
-                                   float* __restrict__ tv_loss) {
-  if (threadIdx.x != 0) return;
-  const double tv_mean = totals[2] / totals[3];
-  stats[2] = (float)totals[1];
-  stats[3] = (float)tv_mean;
-  *edge_loss = (float)(totals[0] / totals[1]);
-  *tv_loss = (float)fmax(tv_mean, 0.0);
+                                   float* __restrict__ tv_loss, int members) {
+  for (int m = threadIdx.x; m < members; m += blockDim.x) {
+    const double* t = totals + 4 * m;
+    float* s = stats + 5 * m;
+    const double tv_mean = t[2] / t[3];
+    s[0] = base[0];
+    s[1] = base[1];
+    s[4] = base[4];
+    s[2] = (float)t[1];
+    s[3] = (float)tv_mean;
+    edge_loss[m] = (float)(t[0] / t[1]);
+    tv_loss[m] = (float)fmax(tv_mean, 0.0);
+  }
 }
 
 // ---------------------------------------------------------------- K3 ----
@@ -538,9 +565,14 @@ grad_kernel(const float* __restrict__ hr, const float* __restrict__ sr,
   constexpr int kOut = 32 - 2 * kGradHalo;
   const int lane = threadIdx.x % 32;
   const int rw = W * C;
+  // member blockIdx.y: its sr, dsr, stats row and cotangents
+  const int m = blockIdx.y;
+  sr += (int64_t)m * B * H * rw;
+  dsr += (int64_t)m * B * H * rw;
+  stats += 5 * m;
   const float mean = stats[0], scale = 0.2f / stats[1];
-  const float c_edge = g_edge[0] / stats[2];
-  const float c_tv = stats[3] > 0.f ? g_tv[0] / stats[4] : 0.f;  // relu gate
+  const float c_edge = g_edge[m] / stats[2];
+  const float c_tv = stats[3] > 0.f ? g_tv[m] / stats[4] : 0.f;  // relu gate
   for_each_stretch(B, H, run, bands, [&](int band, int b, int y0, int y1) {
     const int q = band * kOut - kGradHalo + lane;
     bool in_row[4], own[4];
@@ -674,45 +706,79 @@ int recon_edge_stats_finalize(const double* totals, float* stats,
   return (int)cudaGetLastError();
 }
 
-// K2 and its totals stage: totals = [sum |hr-sr|*e, sum e, sum tv, count].
-// vec as for recon_edge_stats; the partials buffer holds recon_sums_blocks *
-// 3 doubles.
-int recon_loss_sums(const float* hr, const float* sr, int B, int H, int W,
-                    int C, int vec, double* partials, const float* stats,
-                    double* totals, cudaStream_t stream) {
+// K2 and its totals stage over N members' sr (N, B, H, W, C) against one hr:
+// totals = N x [sum |hr-sr|*e, sum e, sum tv, count]. vec as for
+// recon_edge_stats; the partials buffer holds N * recon_sums_blocks * 3
+// doubles; stats is K1's.
+int recon_loss_sums_pooled(const float* hr, const float* sr, int N, int B,
+                           int H, int W, int C, int vec, double* partials,
+                           const float* stats, double* totals,
+                           cudaStream_t stream) {
   if (vec && !vector_rows(W, C, {hr, sr})) return (int)cudaErrorInvalidValue;
+  if (N < 1 || N > 65535) return (int)cudaErrorInvalidValue;
   const double count = (double)B * H * W * C;
   return with_channels(B, H, W, C, [&](auto c) {
     constexpr int kC = decltype(c)::value;
     const Runs runs = sums_runs(B, H, W, kC);
     auto kernel = vec ? loss_sums_kernel<kC, true> : loss_sums_kernel<kC, false>;
-    kernel<<<runs.blocks, kBandThreads, 0, stream>>>(
+    kernel<<<dim3(runs.blocks, N), kBandThreads, 0, stream>>>(
         hr, sr, B, H, W, runs.rows, runs.bands, stats, partials);
-    partials_totals<3><<<1, kThreads, 0, stream>>>(partials, runs.blocks, count,
+    partials_totals<3><<<N, kThreads, 0, stream>>>(partials, runs.blocks, count,
                                                    totals);
   });
 }
 
-// K2's finalise: edge_loss, tv_loss and stats[2:4] from totals.
-int recon_loss_sums_finalize(const double* totals, float* stats,
-                             float* edge_loss, float* tv_loss,
-                             cudaStream_t stream) {
-  loss_sums_finalize<<<1, 32, 0, stream>>>(totals, stats, edge_loss, tv_loss);
+// The one-member launch: totals = [sum |hr-sr|*e, sum e, sum tv, count].
+int recon_loss_sums(const float* hr, const float* sr, int B, int H, int W,
+                    int C, int vec, double* partials, const float* stats,
+                    double* totals, cudaStream_t stream) {
+  return recon_loss_sums_pooled(hr, sr, 1, B, H, W, C, vec, partials, stats,
+                                totals, stream);
+}
+
+// K2's finalise over N members: edge_loss[m], tv_loss[m] and stats row m
+// (N x 5 floats: K1's base stats with member m's [2:4]) from totals.
+int recon_loss_sums_finalize_pooled(const double* totals, const float* base,
+                                    float* stats, float* edge_loss,
+                                    float* tv_loss, int N,
+                                    cudaStream_t stream) {
+  if (N < 1) return (int)cudaErrorInvalidValue;
+  loss_sums_finalize<<<1, 32, 0, stream>>>(totals, base, stats, edge_loss,
+                                           tv_loss, N);
   return (int)cudaGetLastError();
 }
 
-// K3; the count of c_tv is stats[4], the group's where the stats are.
-int recon_loss_grad(const float* hr, const float* sr, int B, int H, int W,
-                    int C, int vec, const float* stats, const float* g_edge,
-                    const float* g_tv, float* dsr, cudaStream_t stream) {
+// The one-member finalise: edge_loss, tv_loss and stats[2:4] in place.
+int recon_loss_sums_finalize(const double* totals, float* stats,
+                             float* edge_loss, float* tv_loss,
+                             cudaStream_t stream) {
+  return recon_loss_sums_finalize_pooled(totals, stats, stats, edge_loss,
+                                         tv_loss, 1, stream);
+}
+
+// K3 over N members: dsr[m] from sr[m], stats row m and g_edge[m], g_tv[m];
+// the count of c_tv is the row's [4], the group's where the stats are.
+int recon_loss_grad_pooled(const float* hr, const float* sr, int N, int B,
+                           int H, int W, int C, int vec, const float* stats,
+                           const float* g_edge, const float* g_tv, float* dsr,
+                           cudaStream_t stream) {
   if (vec && !vector_rows(W, C, {hr, sr, dsr})) return (int)cudaErrorInvalidValue;
+  if (N < 1 || N > 65535) return (int)cudaErrorInvalidValue;
   return with_channels(B, H, W, C, [&](auto c) {
     constexpr int kC = decltype(c)::value;
     const Runs runs = band_runs(B, H, W, kC, kGradHalo, kBlocksPerSm);
     auto kernel = vec ? grad_kernel<kC, true> : grad_kernel<kC, false>;
-    kernel<<<runs.blocks, kBandThreads, 0, stream>>>(
+    kernel<<<dim3(runs.blocks, N), kBandThreads, 0, stream>>>(
         hr, sr, B, H, W, runs.rows, runs.bands, stats, g_edge, g_tv, dsr);
   });
+}
+
+// The one-member K3.
+int recon_loss_grad(const float* hr, const float* sr, int B, int H, int W,
+                    int C, int vec, const float* stats, const float* g_edge,
+                    const float* g_tv, float* dsr, cudaStream_t stream) {
+  return recon_loss_grad_pooled(hr, sr, 1, B, H, W, C, vec, stats, g_edge,
+                                g_tv, dsr, stream);
 }
 
 }  // extern "C"

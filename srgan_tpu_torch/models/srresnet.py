@@ -85,7 +85,13 @@ class GroupNorm(nn.GroupNorm):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        # F.group_norm's own kernel, called directly: F.group_norm asks for
+        # the input's memory format, which torch.func.vmap cannot answer
+        # (the vmap pool executor); the bits are the same
+        x = x.float().contiguous()
+        n, c = x.shape[:2]
+        y = torch.native_group_norm(x, self.weight, self.bias, n, c, x[0, 0].numel(),
+                                    self.num_groups, self.eps)[0]
         return y.to(self.compute_dtype)
 
 

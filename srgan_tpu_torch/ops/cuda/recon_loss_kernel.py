@@ -10,6 +10,18 @@ K1's finalise fills the statistics of the raw edge map and the element
 count, K2's the sum of the normalized map and the TV mean before the relu.
 Every scalar stays on the device, so the forward makes no host sync.
 
+The member axis (the vmap pool executor: N generators' SR against one HR):
+
+  ``loss_sums_pooled(hr, sr, stats, group)``  K2 over sr (N, B, H, W, C) in
+      one launch → ``(edge_loss (N,), tv_loss (N,), stats (N, 5))``
+  ``loss_grad_pooled(hr, sr, stats, ge, gt)`` K3 in one launch, (N,)
+      cotangents → d loss / d sr (N, B, H, W, C)
+
+Member i's numbers are the bits of K2/K3 on ``sr[i]`` alone (the same
+block partition and fixed-order sums a member); K1 runs once, on ``hr``.
+``ReconstructionLoss``'s ``vmap`` rule calls them through
+``PooledReconstructionLoss`` when only ``sr`` carries the vmapped dimension.
+
 K1 and K2 end in a totals stage (fp64 sums and the count) and a finalise.
 With a process ``group`` (``torch.distributed``) the ranks' totals are
 summed between the two (``parallel.mesh.sum_over_ranks``: an all_gather,
@@ -49,12 +61,14 @@ launches = {"edge_stats": 0, "loss_sums": 0, "loss_grad": 0}
 paths = {f"{name}_{path}": 0 for name in launches for path in ("vec", "scalar")}
 # K1's and K2's launches whose totals were summed over a process group
 group_sums = {"edge_stats": 0, "loss_sums": 0}
+# K2's and K3's launches over a member axis (counted in ``launches`` too)
+pooled = {"loss_sums": 0, "loss_grad": 0}
 MAX_CHANNELS = 4  # kMaxChannels in the source: a pixel's neighbour lies
                   # in the same or the adjacent lane's float4
 
 
 def reset_launches() -> None:
-    for counts in (launches, paths, group_sums):
+    for counts in (launches, paths, group_sums, pooled):
         for k in counts:
             counts[k] = 0
 
@@ -77,6 +91,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.recon_loss_sums_finalize.restype = I
     lib.recon_loss_grad.argtypes = [P, P, I, I, I, I, I, P, P, P, P, P]
     lib.recon_loss_grad.restype = I
+    lib.recon_loss_sums_pooled.argtypes = [P, P, I, I, I, I, I, I, P, P, P, P]
+    lib.recon_loss_sums_pooled.restype = I
+    lib.recon_loss_sums_finalize_pooled.argtypes = [P, P, P, P, P, I, P]
+    lib.recon_loss_sums_finalize_pooled.restype = I
+    lib.recon_loss_grad_pooled.argtypes = [P, P, I, I, I, I, I, I, P, P, P, P, P]
+    lib.recon_loss_grad_pooled.restype = I
     return lib
 
 
@@ -108,11 +128,20 @@ def _check(*tensors: torch.Tensor) -> None:
         raise ValueError(f"channels must be 1..{MAX_CHANNELS}, got {shape[-1]}")
 
 
+def _check_pooled(hr: torch.Tensor, sr: torch.Tensor) -> None:
+    """hr (B, H, W, C) and the members' sr (N, B, H, W, C)."""
+    if sr.dim() != 5 or sr.shape[1:] != hr.shape:
+        raise ValueError(f"expected sr (N, *{tuple(hr.shape)}), got {tuple(sr.shape)}")
+    _check(hr, sr[0])
+    if not sr.is_contiguous():
+        raise ValueError("expected contiguous members' sr")
+
+
 def vector_path(*tensors: torch.Tensor) -> bool:
     """Whether K1-K3 take their 16-byte path for these contiguous NHWC
     tensors: every row starts 16-byte aligned, i.e. W·C % 4 == 0 and each
     tensor's data 16-byte aligned. Others take the scalar path."""
-    _, _, w, c = tensors[0].shape
+    w, c = tensors[0].shape[-2:]
     return (w * c) % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
@@ -191,6 +220,52 @@ def loss_grad_plain(hr, sr, stats, g_edge, g_tv) -> torch.Tensor:
     inner = torch.sign(depthwise_conv3x3(sr, DIFF_KERNEL)) * (1.0 - e)
     # DIFF is symmetric: the transpose of its correlation is itself
     g_tv_field = depthwise_conv3x3(inner, DIFF_KERNEL) * c_tv
+    return -torch.sign(hr - sr) * e * c_edge + g_tv_field
+
+
+def _members(x: torch.Tensor) -> torch.Tensor:
+    """An (N,) vector shaped to broadcast over (N, B, H, W, C)."""
+    return x.reshape(-1, 1, 1, 1, 1)
+
+
+def loss_sums_pooled_plain(hr, sr, stats, group=None):
+    """``loss_sums_plain`` of each member's ``sr[i]`` against the shared
+    ``hr``: ``(edge_loss (N,), tv_loss (N,), stats (N, 5))``, each member's
+    stats row K1's with its own Σe and TV mean. The sums as the
+    single-member version takes them: in the input's dtype without a group,
+    fp64 totals summed over the ranks with one."""
+    n = sr.shape[0]
+    e = normalize_edges(sobel_edge_map(hr), stats[0], stats[1])
+    tv = depthwise_conv3x3(sr.flatten(0, 1), DIFF_KERNEL).view_as(sr).abs() * (1.0 - e)
+    wdiff = (hr - sr).abs() * e
+    dims = (1, 2, 3, 4)
+    if group is None:
+        esum = e.sum().expand(n)
+        tv_mean, edge_loss = tv.mean(dims), wdiff.sum(dims) / esum
+    else:
+        f64 = torch.float64
+        sums = torch.stack([wdiff.sum(dims, dtype=f64), e.sum(dtype=f64).expand(n),
+                            tv.sum(dims, dtype=f64),
+                            torch.full((n,), float(hr.numel()), dtype=f64,
+                                       device=hr.device)], 1)
+        t = sum_over_ranks(sums, group)
+        esum, tv_mean, edge_loss = (x.to(hr.dtype) for x in (t[:, 1], t[:, 2] / t[:, 3],
+                                                             t[:, 0] / t[:, 1]))
+    rows = stats.expand(n, 5).clone()
+    rows[:, 2], rows[:, 3] = esum, tv_mean
+    return edge_loss, torch.relu(tv_mean), rows
+
+
+def loss_grad_pooled_plain(hr, sr, stats, g_edge, g_tv) -> torch.Tensor:
+    """``loss_grad_plain`` of each member: ``sr`` (N, B, H, W, C), ``stats``
+    (N, 5), ``g_edge`` and ``g_tv`` (N,)."""
+    e = normalize_edges(sobel_edge_map(hr), stats[0, 0], stats[0, 1])
+    c_edge = _members(g_edge / stats[:, 2])
+    c_tv = _members(torch.where(stats[:, 3] > 0, g_tv / stats[:, 4],
+                                torch.zeros_like(g_tv)))
+    flat = sr.flatten(0, 1)
+    inner = torch.sign(depthwise_conv3x3(flat, DIFF_KERNEL)) * (1.0 - e.repeat(sr.shape[0], 1, 1, 1))
+    g_tv_field = depthwise_conv3x3(inner, DIFF_KERNEL).view_as(sr) * c_tv
     return -torch.sign(hr - sr) * e * c_edge + g_tv_field
 
 
@@ -284,6 +359,59 @@ def _launch_loss_grad(lib, hr, sr, stats, g_edge, g_tv, vec: bool,
     return dsr
 
 
+def _launch_sums_totals_pooled(lib, hr, sr, stats, vec: bool, stream: int):
+    """K2 over the members + the totals stage (one block a member); returns
+    ``(totals, out)``: the fp64 (N, 4) totals and 7N unwritten floats, the
+    two (N,) losses and the (N, 5) stats rows."""
+    n = sr.shape[0]
+    b, h, w, c = hr.shape
+    k = _blocks(lib, "recon_sums_blocks", hr.device, hr.shape) * 3
+    buf = torch.empty(n * (k + 4), dtype=torch.float64, device=hr.device)
+    partials, totals = buf[:n * k], buf[n * k:].view(n, 4)
+    rc = lib.recon_loss_sums_pooled(
+        hr.data_ptr(), sr.data_ptr(), n, b, h, w, c, int(vec), partials.data_ptr(),
+        stats.data_ptr(), totals.data_ptr(), stream,
+    )
+    _raise_if_failed(lib, rc, "recon_loss_sums_pooled")
+    return totals, torch.empty(7 * n, dtype=torch.float32, device=hr.device)
+
+
+def _launch_sums_finalize_pooled(lib, totals, stats, out, stream: int):
+    """K2's finalise, one thread a member: ``(edge_loss, tv_loss, rows)``
+    from (summed) ``totals`` and K1's ``stats``."""
+    n = totals.shape[0]
+    edge_loss, tv_loss, rows = out[:n], out[n:2 * n], out[2 * n:].view(n, 5)
+    rc = lib.recon_loss_sums_finalize_pooled(
+        totals.data_ptr(), stats.data_ptr(), rows.data_ptr(), edge_loss.data_ptr(),
+        tv_loss.data_ptr(), n, stream)
+    _raise_if_failed(lib, rc, "recon_loss_sums_finalize_pooled")
+    return edge_loss, tv_loss, rows
+
+
+def _launch_loss_sums_pooled(lib, hr, sr, stats, vec: bool, stream: int, group=None):
+    """K2 over the members + totals, the group's sum of the (N, 4) totals, +
+    finalise; returns ``(edge_loss (N,), tv_loss (N,), stats (N, 5))``."""
+    totals, out = _launch_sums_totals_pooled(lib, hr, sr, stats, vec, stream)
+    return _launch_sums_finalize_pooled(lib, sum_over_ranks(totals, group), stats,
+                                        out, stream)
+
+
+def _launch_loss_grad_pooled(lib, hr, sr, stats, g_edge, g_tv, vec: bool,
+                             stream: int) -> torch.Tensor:
+    """K3 over the members; ``stats`` (N, 5), ``g_edge``/``g_tv`` (N,)."""
+    n = sr.shape[0]
+    b, h, w, c = hr.shape
+    scalars = [g.detach().to(device=hr.device, dtype=torch.float32).reshape(n)
+               .contiguous() for g in (g_edge, g_tv)]
+    dsr = torch.empty_like(sr)
+    rc = lib.recon_loss_grad_pooled(
+        hr.data_ptr(), sr.data_ptr(), n, b, h, w, c, int(vec), stats.data_ptr(),
+        scalars[0].data_ptr(), scalars[1].data_ptr(), dsr.data_ptr(), stream,
+    )
+    _raise_if_failed(lib, rc, "recon_loss_grad_pooled")
+    return dsr
+
+
 # -------------------------------------------------------------- wrappers --
 
 
@@ -330,31 +458,117 @@ def loss_grad(hr, sr, stats, g_edge, g_tv) -> torch.Tensor:
     return dsr
 
 
+def loss_sums_pooled(hr, sr, stats, group=None):
+    """K2 over the members' ``sr`` (N, B, H, W, C) in one launch: ``(edge_loss
+    (N,), tv_loss (N,), stats (N, 5))``. Over the group's batch where
+    ``group`` is given."""
+    if not hr.is_cuda:
+        return loss_sums_pooled_plain(hr, sr, stats, group)
+    _check_pooled(hr, sr)
+    vec = vector_path(hr, sr)
+    with _on_device(hr):
+        out = _launch_loss_sums_pooled(_lib(), hr, sr, stats, vec, _stream(hr), group)
+    launches["loss_sums"] += 1
+    pooled["loss_sums"] += 1
+    group_sums["loss_sums"] += group is not None
+    paths["loss_sums_vec" if vec else "loss_sums_scalar"] += 1
+    return out
+
+
+def loss_grad_pooled(hr, sr, stats, g_edge, g_tv) -> torch.Tensor:
+    """K3 over the members in one launch: d(Σ_i g_edge[i]·edge_loss[i] +
+    g_tv[i]·tv_loss[i]) / d sr, (N, B, H, W, C) like ``sr``."""
+    if not hr.is_cuda:
+        return loss_grad_pooled_plain(hr, sr, stats, g_edge, g_tv)
+    _check_pooled(hr, sr)
+    vec = vector_path(hr, sr)
+    with _on_device(hr):
+        dsr = _launch_loss_grad_pooled(_lib(), hr, sr, stats, g_edge, g_tv, vec,
+                                       _stream(hr))
+    launches["loss_grad"] += 1
+    pooled["loss_grad"] += 1
+    paths["loss_grad_vec" if vec else "loss_grad_scalar"] += 1
+    return dsr
+
+
+def _cotangents(ctx, g_edge, g_tv, like):
+    """The incoming gradients, zeros where None, scaled by the world size
+    (see ``ReconstructionLoss``)."""
+    g_edge = torch.zeros_like(like) if g_edge is None else g_edge
+    g_tv = torch.zeros_like(like) if g_tv is None else g_tv
+    if ctx.world > 1:
+        g_edge, g_tv = g_edge * ctx.world, g_tv * ctx.world
+    return g_edge, g_tv
+
+
+def _setup(ctx, inputs, output):
+    hr, sr, group = inputs
+    stats = output[2]
+    ctx.mark_non_differentiable(stats)
+    ctx.save_for_backward(hr, sr, stats)
+    ctx.world = 1 if group is None else world_size(group)
+
+
 class ReconstructionLoss(torch.autograd.Function):
-    """``(edge_loss, tv_loss)`` with a kernel forward (K1 → K2) and a kernel
-    backward (K3). ``hr`` is data and gets no gradient. On CPU tensors the
-    same three steps run their plain versions.
+    """``(edge_loss, tv_loss, stats)`` with a kernel forward (K1 → K2) and a
+    kernel backward (K3); ``stats`` (see above) is returned for the backward
+    and takes no gradient. ``hr`` is data and gets no gradient. On CPU
+    tensors the same three steps run their plain versions.
 
     With a process ``group`` of P ranks the losses are the global batch's
     on every rank, and the backward returns P times this rank's share of
     their gradient: the ranks' parameter gradients are then AVERAGED, as
     every other gradient of a step is (``parallel.mesh.average_grads``), and
-    the average is the global loss's gradient. At P = 1 nothing is scaled."""
+    the average is the global loss's gradient. At P = 1 nothing is scaled.
+
+    Under ``torch.func.vmap`` with only ``sr`` batched (the members of a
+    pool against one HR batch), the rule runs ``PooledReconstructionLoss``:
+    one K1, one K2 and one K3 launch for all members, on every device
+    through the same wrappers."""
 
     @staticmethod
-    def forward(ctx, hr, sr, group=None):
+    def forward(hr, sr, group=None):
         stats = edge_stats(hr, group)
         edge_loss, tv_loss = loss_sums(hr, sr, stats, group)
-        ctx.save_for_backward(hr, sr, stats)
-        ctx.world = 1 if group is None else world_size(group)
-        return edge_loss, tv_loss
+        return edge_loss, tv_loss, stats
+
+    setup_context = staticmethod(_setup)
 
     @staticmethod
-    def backward(ctx, g_edge, g_tv):
+    def backward(ctx, g_edge, g_tv, _):
         hr, sr, stats = ctx.saved_tensors
         zero = torch.zeros((), dtype=sr.dtype, device=sr.device)
-        g_edge = zero if g_edge is None else g_edge
-        g_tv = zero if g_tv is None else g_tv
-        if ctx.world > 1:
-            g_edge, g_tv = g_edge * ctx.world, g_tv * ctx.world
+        g_edge, g_tv = _cotangents(ctx, g_edge, g_tv, zero)
         return None, loss_grad(hr, sr, stats, g_edge, g_tv), None
+
+    @staticmethod
+    def vmap(info, in_dims, hr, sr, group=None):
+        hr_dim, sr_dim, _ = in_dims
+        if hr_dim is not None:
+            raise NotImplementedError(
+                "ReconstructionLoss under vmap takes a batched sr against one hr "
+                "(the pool's members); hr carries the vmapped dimension here")
+        out = PooledReconstructionLoss.apply(hr, sr.movedim(sr_dim, 0), group)
+        return out, (0, 0, 0)
+
+
+class PooledReconstructionLoss(torch.autograd.Function):
+    """``ReconstructionLoss`` of N members' ``sr`` (N, B, H, W, C) against
+    one ``hr``: ``(edge_loss (N,), tv_loss (N,), stats (N, 5))``. K1 once on
+    ``hr`` (the shared edge statistics), K2 and K3 one launch each over the
+    members; each member's numbers are those of ``ReconstructionLoss`` on
+    ``sr[i]``, on the card bit for bit. The group as there."""
+
+    @staticmethod
+    def forward(hr, sr, group=None):
+        stats = edge_stats(hr, group)
+        return loss_sums_pooled(hr, sr.contiguous(), stats, group)
+
+    setup_context = staticmethod(_setup)
+
+    @staticmethod
+    def backward(ctx, g_edge, g_tv, _):
+        hr, sr, stats = ctx.saved_tensors
+        zeros = torch.zeros(sr.shape[0], dtype=sr.dtype, device=sr.device)
+        g_edge, g_tv = _cotangents(ctx, g_edge, g_tv, zeros)
+        return None, loss_grad_pooled(hr, sr.contiguous(), stats, g_edge, g_tv), None

@@ -66,7 +66,7 @@ def reconstruction_loss(
     if hr.is_cuda or sr.is_cuda or group is not None:
         from srgan_tpu_torch.ops.cuda.recon_loss_kernel import ReconstructionLoss
 
-        return ReconstructionLoss.apply(hr, sr, group)
+        return ReconstructionLoss.apply(hr, sr, group)[:2]
     return reconstruction_loss_with_edges(hr, sr, edge_importance_map(hr))
 
 

@@ -40,8 +40,6 @@ data-parallel over its ranks, as JAX's ``Trainer`` is over a mesh:
     resume; each rank logs its own metrics JSONL (rank-suffixed after rank
     0), averaged across ranks with ``reduce_metrics``.
 
-Not ported yet (it raises, naming its ROADMAP.md item): the ``vmap`` pool
-executor.
 Configs that the JAX ``Trainer`` refuses raise the same ``ValueError``
 here. ``debug_nans`` checks every drained loss vector and raises
 ``FloatingPointError`` at the first non-finite one (JAX turns on
@@ -73,6 +71,8 @@ from srgan_tpu_torch.training.stacked_pool import (
     StackedGeneratorPool,
     scanned_pool_gan_step,
     scanned_pool_step,
+    stacked_pool_gan_step,
+    stacked_pool_step,
 )
 from srgan_tpu_torch.training.steps import (
     PACKED_KEYS,
@@ -143,12 +143,21 @@ class Trainer:
                 f"PoolConfig.member_exec must be 'vmap' or 'scan', got "
                 f"{cfg.pool.member_exec!r}"
             )
-        if self.use_stacked and cfg.pool.member_exec == "vmap":
-            raise NotImplementedError(
-                "PoolConfig.member_exec='vmap': the vmap pool executor is not "
-                "ported yet (ROADMAP.md, queue 1, item 7: generator pool); "
-                "'scan' computes the same updates"
+        if self.use_stacked and cfg.pool.member_exec == "vmap" and cfg.model.remat:
+            # JAX remats inside its vmap; torch.utils.checkpoint recomputes
+            # outside torch.func.vmap, where its saved inputs are gone
+            raise ValueError(
+                "PoolConfig.member_exec='vmap' cannot run ModelConfig.remat: "
+                "torch.utils.checkpoint does not recompute under torch.func."
+                "vmap; 'scan' computes the same updates with one member's "
+                "activations alive at a time"
             )
+        # the stacked pool's executor: the member loop, or the vmap region
+        self.pool_steps = (
+            (stacked_pool_step, stacked_pool_gan_step)
+            if cfg.pool.member_exec == "vmap"
+            else (scanned_pool_step, scanned_pool_gan_step)
+        )
         self.cfg = cfg
         self.device = resolve_device(device)
         self.group = mesh.default_group()
@@ -302,9 +311,11 @@ class Trainer:
 
     def _train_epoch_stacked(self, pipeline: TrainPipeline, epoch: int) -> dict:
         """One epoch of the stacked pool: every member updates on every
-        batch through the scan executor, and with a discriminator, the one
-        D update of the batch follows the member loop."""
+        batch through the executor ``PoolConfig.member_exec`` names (the
+        member loop, or all members in one vmapped region), and with a
+        discriminator, the one D update of the batch follows."""
         cfg = self.cfg
+        pool_step, pool_gan_step = self.pool_steps
         g_lr = epoch_lr(cfg.train, cfg.train.lr_generator, epoch)
         d_lr = epoch_lr(cfg.train, cfg.train.lr_discriminator, epoch)
         gen = _epoch_generator(pipeline.device, cfg.train.seed, epoch)
@@ -343,12 +354,12 @@ class Trainer:
             # the gate reads losses through batch k−2, as in JAX
             gan_mask = self.spool.sample_gan_mask(use_gan)
             if use_gan:
-                self.spool.state, self.d_state, metrics = scanned_pool_gan_step(
+                self.spool.state, self.d_state, metrics = pool_gan_step(
                     self.spool.state, self.d_state, hr, lr_imgs, gan_mask,
                     g_lr, d_lr, d_target_idx=self._d_target(n_batches), **px,
                 )
             else:
-                self.spool.state, metrics = scanned_pool_step(
+                self.spool.state, metrics = pool_step(
                     self.spool.state, hr, lr_imgs, g_lr, **px,
                 )
             if pending is not None:

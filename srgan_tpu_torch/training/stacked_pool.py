@@ -1,7 +1,7 @@
 """The stacked generator pool, the counterpart of
-``srgan_tpu/training/stacked_pool.py``: the executor a pool of more than one
-generator runs by default (``PoolConfig.stacked=True``,
-``member_exec="scan"``), and its numpy scheduler.
+``srgan_tpu/training/stacked_pool.py``: the two executors a pool of more
+than one generator runs (``PoolConfig.stacked=True``; ``member_exec="scan"``
+by default, or ``"vmap"``), and their numpy scheduler.
 
 In JAX the members' states are stacked on a leading pool axis and one
 compiled step scans over it, each iteration taking its member's gradient
@@ -25,9 +25,23 @@ as JAX hoists them out of its scan; they carry no graph, so every member
 may share them although each member's Adam step runs before the next
 member's forward.
 
-Not ported: the ``vmap`` executor (``member_exec="vmap"``, ROADMAP.md): the
-loss kernels' ``autograd.Function`` has no vmap rule. JAX's tests hold its
-numbers equal to the scan executor's.
+The vmap executor (:func:`stacked_pool_step`, :func:`stacked_pool_gan_step`)
+differentiates the SUM of the members' objectives in one region, as JAX's
+``_stacked_loss_fn`` does: the members' params are stacked into (N, …)
+leaves, member 0's module runs under ``torch.func.vmap`` through
+``torch.func.functional_call`` (a conv with a batched weight becomes a
+grouped conv), and ``torch.autograd.grad`` of the sum gives every member its
+own gradient. All N members' activations are alive at the backward (the
+scan keeps one member's). The loss runs through the kernels' Function,
+whose vmap rule launches K1 once on HR and K2 and K3 once each over the
+member axis. D(hr) and the HR features are taken once, outside the vmap;
+D(sr) runs inside it, the perceptual extractor outside it on the N·B SR
+images. Each member's slice of the gradients then goes to its own
+``TrainState.apply_gradients`` (its in-place Adam, averaged over the group
+under ``--multihost``): JAX's ``vmap(member_update)``. The stacked leaves
+are copies; a step reads the members' params afresh. ``torch.utils.
+checkpoint`` cannot recompute inside ``vmap``, so this executor refuses a
+model with ``remat`` (the ``Trainer`` says so).
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ import torch
 import torch.nn as nn
 
 from srgan_tpu_torch.config import PoolConfig
+from srgan_tpu_torch.ops.cuda.recon_loss_kernel import ReconstructionLoss
 from srgan_tpu_torch.ops.gan_loss import generator_adversarial_loss
 from srgan_tpu_torch.ops.recon_loss import reconstruction_loss
 from srgan_tpu_torch.training.pool import interpolate_params
@@ -163,6 +178,106 @@ def scanned_pool_gan_step(
     is the flat (5N + 1,) vector, ``d_loss`` last."""
     real_preds = d_state.model(hr)
     losses, sr_d = _scan_pool_update(states, hr, lr_imgs, g_lr, d_state.model,
+                                     real_preds.detach(), gan_mask, d_target_idx,
+                                     extractor, p_weight)
+    d_state, d_metrics = discriminator_step_on_sr(d_state, hr, sr_d, d_lr,
+                                                  real_preds=real_preds)
+    metrics = {**_metrics(losses), "d_loss": d_metrics["d_loss"]}
+    metrics["packed"] = pack_metrics(metrics, d_metrics["d_loss"], states[0].group)
+    return states, d_state, metrics
+
+
+def _member_perceptual(srs, f_real: dict, extractor: nn.Module) -> torch.Tensor:
+    """``perceptual_term`` of each member's SR, (N,): the extractor runs once
+    on the N·B images (its features of a member's images are those it gives
+    them alone), each tap's mean taken over the member's slice."""
+    n = srs.shape[0]
+    f_fake = extractor(srs.flatten(0, 1))
+    p = torch.zeros(n, device=srs.device)
+    for key in f_real:
+        diff = f_fake[key].unflatten(0, (n, -1)) - f_real[key]
+        p = p + diff.abs().flatten(1).mean(1)
+    return p
+
+
+def _vmap_pool_update(states: Sequence[TrainState], hr, lr_imgs, g_lr: float,
+                      d_model: Optional[nn.Module] = None, d_real=None,
+                      gan_mask=None, d_target_idx: int = 0,
+                      extractor: Optional[nn.Module] = None, p_weight: float = 0.0):
+    """All members in one differentiated region (see the module docstring),
+    then each member's Adam step. Arguments and returns as
+    ``_scan_pool_update``'s."""
+    n = len(states)
+    model = states[0].model
+    model.train()
+    names = [name for name, _ in model.named_parameters()]
+    with torch.no_grad():
+        stacked = [torch.stack([st.params[j] for st in states]).requires_grad_()
+                   for j in range(len(names))]
+    mask = torch.as_tensor(np.zeros(n) if gan_mask is None else np.asarray(gan_mask),
+                           dtype=torch.float32, device=hr.device)
+    group = states[0].group
+    zero = torch.zeros((), device=hr.device)
+
+    def one(params, m):
+        sr = torch.func.functional_call(model, dict(zip(names, params)), (lr_imgs,))
+        com, tv, _ = ReconstructionLoss.apply(hr, sr, group)
+        g_d = zero if d_model is None else generator_adversarial_loss(d_real, d_model(sr))
+        return com + tv + m * g_d, com, tv, g_d, sr
+
+    loss, com, tv, g_d, srs = torch.func.vmap(one)(stacked, mask)
+    p = torch.zeros(n, device=hr.device)
+    if extractor is not None:
+        p = _member_perceptual(srs, real_features(extractor, hr), extractor)
+        loss = loss + p_weight * p
+    grads = torch.autograd.grad(loss.sum(), stacked)
+    for i, st in enumerate(states):
+        st.apply_gradients([g[i] for g in grads], g_lr)
+    losses = tuple(x.detach() for x in (com, tv, g_d, p, loss))
+    return losses, srs[d_target_idx].detach()
+
+
+def stacked_pool_step(
+    states: List[TrainState],
+    hr: torch.Tensor,
+    lr_imgs: torch.Tensor,
+    lr: float,
+    extractor: Optional[nn.Module] = None,
+    p_weight: float = 0.0,
+    d_target_idx: int = 0,
+    return_sr: bool = False,
+) -> Tuple[List[TrainState], dict]:
+    """The vmap executor's pixel update of every member on one batch, with
+    the perceptual term where ``extractor`` is given. ``metrics["packed"]``
+    is (5, N); ``return_sr`` adds ``metrics["sr"]``, member
+    ``d_target_idx``'s pre-update SR."""
+    losses, sr = _vmap_pool_update(states, hr, lr_imgs, lr, d_target_idx=d_target_idx,
+                                   extractor=extractor, p_weight=p_weight)
+    metrics = _metrics(losses)
+    metrics["packed"] = pack_metrics(metrics, group=states[0].group)
+    if return_sr:
+        metrics["sr"] = sr
+    return states, metrics
+
+
+def stacked_pool_gan_step(
+    states: List[TrainState],
+    d_state: TrainState,
+    hr: torch.Tensor,
+    lr_imgs: torch.Tensor,
+    gan_mask,
+    g_lr: float,
+    d_lr: float,
+    d_target_idx: int = 0,
+    extractor: Optional[nn.Module] = None,
+    p_weight: float = 0.0,
+) -> Tuple[List[TrainState], TrainState, dict]:
+    """:func:`scanned_pool_gan_step` through the vmap executor: every member
+    reads the pre-update D (D(hr) once, with its graph for D's loss; the
+    members read it detached), then the one D update on member
+    ``d_target_idx``'s pre-update SR."""
+    real_preds = d_state.model(hr)
+    losses, sr_d = _vmap_pool_update(states, hr, lr_imgs, g_lr, d_state.model,
                                      real_preds.detach(), gan_mask, d_target_idx,
                                      extractor, p_weight)
     d_state, d_metrics = discriminator_step_on_sr(d_state, hr, sr_d, d_lr,

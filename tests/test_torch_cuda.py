@@ -254,3 +254,66 @@ class TestCudaTower:
         x24, _, p24 = _tower_inputs((1, 8, 8, 24), 1, False, cuda_device)
         with pytest.raises(ValueError, match="16, 32, 64, 128"):
             tk.residual_tower(x24, p24)
+
+
+# W·C % 4 == 0 takes the vector path, != 0 the scalar one
+_MEMBER_CASES = [((2, 37, 100, 3), "vec"), ((1, 21, 66, 2), "vec"),
+                 ((1, 17, 33, 1), "scalar"), ((3, 70, 257, 3), "scalar")]
+
+
+@pytest.mark.cuda
+class TestCudaMemberAxis:
+    """K2 and K3 over a member axis (the vmap pool executor): each member
+    bit-identical to the single launch on its sr, and the pooled Function
+    under ``torch.func.vmap`` in a pool step against the CPU."""
+
+    @pytest.mark.parametrize("shape,path", _MEMBER_CASES,
+                             ids=[f"{'x'.join(map(str, s))}-{p}" for s, p in _MEMBER_CASES])
+    def test_member_axis_matches_single_launches(self, cuda_device, shape, path):
+        hr, _ = _sparse_pair(shape, cuda_device)
+        srs = torch.stack([_sparse_pair(shape, cuda_device, seed=i)[1] for i in range(3)])
+        assert rk.vector_path(hr, srs) == (path == "vec")
+        ge = torch.tensor([1.0, 0.5, -1.5], device=cuda_device)
+        gt = torch.tensor([1.0, -2.0, 0.25], device=cuda_device)
+        rk.reset_launches()
+        stats = rk.edge_stats(hr)
+        edge, tv, rows = rk.loss_sums_pooled(hr, srs, stats)
+        dsr = rk.loss_grad_pooled(hr, srs, rows, ge, gt)
+        assert rk.pooled == {"loss_sums": 1, "loss_grad": 1}
+        for i in range(3):
+            one = stats.clone()
+            e_i, tv_i = rk.loss_sums(hr, srs[i], one)
+            d_i = rk.loss_grad(hr, srs[i], one, ge[i], gt[i])
+            assert torch.equal(edge[i], e_i) and torch.equal(tv[i], tv_i)
+            assert torch.equal(rows[i], one) and torch.equal(dsr[i], d_i)
+        hr64, srs64 = hr.cpu().double(), srs.cpu().double()
+        e_p, tv_p, rows_p = rk.loss_sums_pooled_plain(hr64, srs64, rk.edge_stats_plain(hr64))
+        g_p = rk.loss_grad_pooled_plain(hr64, srs64, rows_p, ge.cpu().double(),
+                                        gt.cpu().double())
+        np.testing.assert_allclose(edge.cpu().double(), e_p, rtol=1e-4)
+        np.testing.assert_allclose(tv.cpu().double(), tv_p, rtol=1e-4)
+        for i in range(3):
+            err = float((dsr[i].cpu().double() - g_p[i]).abs().max())
+            assert err <= 1e-3 * float(g_p[i].abs().max())
+
+    def test_vmap_pool_step_matches_cpu(self, cuda_device):
+        """One pixel step of the vmap executor (N=3) on the card, its loss
+        through one K1, K2 and K3 launch, against the same step on the CPU."""
+        from srgan_tpu_torch.config import ModelConfig
+        from srgan_tpu_torch.models.srresnet import init_generator
+        from srgan_tpu_torch.training.stacked_pool import stacked_pool_step
+        from srgan_tpu_torch.training.train_state import TrainState
+
+        rng = np.random.default_rng(0)
+        hr = rng.random((2, 32, 64, 3), dtype=np.float32)
+        lr_imgs = rng.random((2, 8, 16, 3), dtype=np.float32)
+        cfg = ModelConfig(num_features=8, num_residuals=2)
+        out = []
+        for d in (cuda_device, torch.device("cpu")):
+            states = [TrainState(init_generator(cfg, seed=i, device=d)) for i in range(3)]
+            rk.reset_launches()
+            _, m = stacked_pool_step(states, torch.from_numpy(hr).to(d),
+                                     torch.from_numpy(lr_imgs).to(d), 1e-3)
+            out.append((m["packed"].cpu(), dict(rk.launches)))
+        assert out[0][1] == {"edge_stats": 1, "loss_sums": 1, "loss_grad": 1}
+        np.testing.assert_allclose(out[0][0][:3].numpy(), out[1][0][:3].numpy(), rtol=1e-4)

@@ -21,6 +21,7 @@ from srgan_tpu_torch import cli
 from srgan_tpu_torch.eval import evaluation as teval
 from srgan_tpu_torch.eval import inference as tinf
 
+from test_torch_run import TrainerBuilt, spy_trainer
 from test_torch_serve import _jax_generator, _port
 
 torch.set_num_threads(1)
@@ -218,21 +219,24 @@ class TestCLI:
         assert teval.main(argv) == want  # the standalone script's contract
 
     @pytest.mark.parametrize("argv,exc,match", [
-        (["train", "--pool-exec", "vmap", "--device", "cpu"], NotImplementedError,
-         "item 7"),
+        # the case's id is the name it had while the flag was refused
+        pytest.param(["train", "--pool-exec", "vmap", "--device", "cpu"], TrainerBuilt,
+                     "member_exec='vmap'", id="argv0-NotImplementedError-item 7"),
         (["train", "--multihost", "--device", "cpu"], RuntimeError, "MASTER_ADDR"),
         (["eval", "--perceptual-metric", "e.npz", "--bucketed", "--device", "cpu"],
          ValueError, "not supported with --bucketed"),
     ])
     def test_unported_flags_name_their_item(self, argv, exc, match, monkeypatch):
-        """The one unported flag, --pool-exec vmap, names its ROADMAP item
-        (--dp is ported: ``tests/test_torch_parallel.py``); --multihost
-        without torchrun's variables names them; --perceptual-metric is
-        ported and refuses --bucketed, as in JAX."""
+        """Every flag is ported: --pool-exec vmap reaches the Trainer as
+        ``member_exec="vmap"`` (``spy_trainer`` stops the run there; --dp:
+        ``tests/test_torch_parallel.py``); --multihost without torchrun's
+        variables names them; --perceptual-metric refuses --bucketed, as in
+        JAX."""
         from srgan_tpu_torch.parallel.mesh import ENV_VARS
 
         for var in ENV_VARS:
             monkeypatch.delenv(var, raising=False)
+        spy_trainer(monkeypatch)
         with pytest.raises(exc, match=match):
             cli.main(argv)
 

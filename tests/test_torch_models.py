@@ -270,7 +270,8 @@ class TestImports:
                 "srgan_tpu_torch.models.encoder",
                 "srgan_tpu_torch.training.encoder_train",
                 "srgan_tpu_torch.parallel.mesh", "srgan_tpu_torch.parallel.data_parallel",
-                "srgan_tpu_torch.utils.profiling", "srgan_tpu_torch.native"} <= names
+                "srgan_tpu_torch.utils.profiling", "srgan_tpu_torch.native",
+                "srgan_tpu_torch.parallel.spatial", "srgan_tpu_torch.models.s2d_trunk"} <= names
 
     def test_no_import_lines_of_jax(self):
         files = sorted((REPO / "srgan_tpu_torch").rglob("*.py"))

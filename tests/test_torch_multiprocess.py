@@ -14,6 +14,8 @@
       params bit-identical across ranks);
   (e) a SIGTERM to rank 0 alone stops both ranks at the same boundary with
       no deadlock, and a resume on the shared results dir completes;
+  (d') the vmap pool executor's GAN pool of 2 under the group equals the
+      one-process run over the same global batch order (atol 2.5e-4);
   (f) the process-group loss of each rank's half is the whole batch's,
       and the DDP pixel step (``parallel/data_parallel.py``) equals JAX's
       ``make_shardmap_pixel_step`` on a 2-device mesh.
@@ -160,6 +162,33 @@ def test_gan_pool_cluster_runs_in_lockstep(data_dirs, tmp_path):
     assert sum(m["gan_updates"] + m["pixel_updates"] for m in results[0]["pool_meta"]) == 8
     for a, b in zip(_params(outs[0]), _params(outs[1])):
         np.testing.assert_array_equal(a, b)
+
+
+def test_vmap_pool_cluster_matches_single_process(data_dirs, tmp_path):
+    """``--pool-exec vmap`` under ``--multihost``: the pooled K1-K3's totals
+    and every gradient go through the group; both ranks end bit-identical,
+    and the leader's params equal one process over the same global batch
+    order at the JAX test's bar."""
+    results, outs = _cluster("vmap_pool", tmp_path, data_dirs)
+    ref, ref_outs = _cluster("vmap_reference", tmp_path, data_dirs, n_procs=1)
+    r0, r1 = results[0]["record"], results[1]["record"]
+    _same_records(r0, r1)
+    assert r0["n_batches"] == 4 and np.isfinite(r0["d_loss"])
+    assert [m["gan_updates"] for m in results[0]["pool_meta"]] == [2, 2]
+    assert results[0]["pool_meta"] == results[1]["pool_meta"]
+    for m, w in zip(results[0]["pool_meta"], ref[0]["pool_meta"]):
+        assert (m["gan_updates"], m["pixel_updates"]) == (w["gan_updates"], w["pixel_updates"])
+        for k in ("running_loss", "gan_threshold"):
+            assert m[k] == pytest.approx(w[k], rel=1e-5), k
+    for a, b in zip(_params(outs[0]), _params(outs[1])):
+        np.testing.assert_array_equal(a, b)
+    want = _params(ref_outs[0])
+    got = _params(outs[0])
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=2.5e-4)
+    for k in ("g_loss", "com_loss", "tv_loss", "d_loss"):
+        assert r0[k] == pytest.approx(ref[0]["record"][k], rel=2e-2), k
 
 
 class TestSigterm:

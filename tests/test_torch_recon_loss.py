@@ -168,7 +168,8 @@ class TestKernelPlainVersions:
     def test_autograd_function_on_cpu(self, rng):
         hr, sr = (torch.from_numpy(a) for a in _pair(rng, (1, 16, 32, 3)))
         s1 = sr.clone().requires_grad_(True)
-        e1, tv1 = rk.ReconstructionLoss.apply(hr, s1)
+        e1, tv1, stats = rk.ReconstructionLoss.apply(hr, s1)
+        assert stats.shape == (5,) and not stats.requires_grad
         (g1,) = torch.autograd.grad(e1 + tv1, s1)
         e1, tv1 = e1.detach(), tv1.detach()
         s2 = sr.clone().requires_grad_(True)

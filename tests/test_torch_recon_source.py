@@ -218,3 +218,46 @@ def test_recon_source_half_batch_totals_sum_to_the_whole(emulated_lib, vec):
                      for i in (0, 1)])
     err = float((d_g - d_w).abs().max())
     assert err <= 1e-6 * float(d_w.abs().max()), f"dsr max|Δ| {err:.3e}"
+
+
+# ----------------------------------------------------- the member axis ----
+# K2 and K3 over N members' sr against one hr (the vmap pool executor):
+# member i must give the bits of the single launch on sr[i], and the float64
+# pooled plain version within the bars.
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("shape,vec", CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{'vec' if v else 'scalar'}"
+                              for s, v in CASES])
+def test_recon_source_member_axis(emulated_lib, shape, vec, n):
+    lib = emulated_lib
+    hr, _ = _pair(shape)
+    srs = torch.stack([_pair(shape, seed=i)[1] for i in range(n)])
+    assert rk.vector_path(hr, srs) or not vec
+    g_edge = torch.tensor([1.0, 0.5, -1.5][:n])
+    g_tv = torch.tensor([1.0, -2.0, 0.25][:n])
+    stats = rk._launch_edge_stats(lib, hr, vec, 0)
+    edge, tv, rows = rk._launch_loss_sums_pooled(lib, hr, srs, stats, vec, 0)
+    dsr = rk._launch_loss_grad_pooled(lib, hr, srs, rows, g_edge, g_tv, vec, 0)
+    for i in range(n):
+        one = stats.clone()
+        e_i, tv_i = rk._launch_loss_sums(lib, hr, srs[i], one, vec, 0)
+        assert torch.equal(edge[i], e_i) and torch.equal(tv[i], tv_i)
+        assert torch.equal(rows[i], one)
+        d_i = rk._launch_loss_grad(lib, hr, srs[i], one, g_edge[i], g_tv[i], vec, 0)
+        assert torch.equal(dsr[i], d_i)
+
+    hr64, srs64 = hr.double(), srs.double()
+    want_stats = rk.edge_stats_plain(hr64)
+    e_p, tv_p, rows_p = rk.loss_sums_pooled_plain(hr64, srs64, want_stats)
+    g_p = rk.loss_grad_pooled_plain(hr64, srs64, rows_p, g_edge.double(), g_tv.double())
+    # member 0 is the case's pair, its TV term live; where another member's
+    # TV mean is <= 0, its own relu gate must zero its TV gradient alone
+    assert float(rows_p[0, 3]) > 0
+    np.testing.assert_allclose(rows.double().numpy(), rows_p.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(edge.double().numpy(), e_p.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(tv.double().numpy(), tv_p.numpy(), rtol=1e-4)
+    for i in range(n):
+        err = float((dsr[i].double() - g_p[i]).abs().max())
+        assert err <= 1e-3 * float(g_p[i].abs().max()), f"member {i} dsr max|Δ| {err:.3e}"

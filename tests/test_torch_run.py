@@ -201,6 +201,27 @@ def test_continue_training_and_watermark(tmp_path, folders, capsys):
     assert resumed._best_psnr == 7.5
 
 
+class TrainerBuilt(Exception):
+    """Raised by ``spy_trainer``'s Trainer for a vmap pool: the CLI handed
+    the config on."""
+
+
+def spy_trainer(monkeypatch):
+    """The CLI's Trainer, stopped where the config asks for the vmap pool
+    executor (the message names ``member_exec``); every other config builds
+    the real one."""
+    from srgan_tpu_torch.training import loop
+
+    real = loop.Trainer
+
+    def build(cfg, device=None):
+        if cfg.pool.member_exec == "vmap":
+            raise TrainerBuilt(f"member_exec={cfg.pool.member_exec!r}")
+        return real(cfg, device=device)
+
+    monkeypatch.setattr(loop, "Trainer", build)
+
+
 class TestCLI:
     @staticmethod
     def _train_actions(add_train):
@@ -261,12 +282,13 @@ class TestCLI:
         (["--profile-dir", "trace", "--perceptual-encoder", "e.npz"], ValueError,
          "perceptual_weight"),
         (["--multihost"], RuntimeError, "MASTER_ADDR"),
-        (["--pool-exec", "vmap"], NotImplementedError, "item 7"),
+        (["--pool-exec", "vmap"], TrainerBuilt, "member_exec='vmap'"),
         (["--perceptual-encoder", "e.npz"], ValueError, "perceptual_weight"),
     ], ids=["profile_dir", "multihost", "pool_exec_vmap", "perceptual"])
     def test_unported_flags_name_roadmap(self, tmp_path, flag, exc, item, monkeypatch):
-        """The one unported flag, --pool-exec vmap, names its ROADMAP item.
-        --profile-dir is ported: the run goes on to the Trainer, which
+        """Every flag is ported. --pool-exec vmap reaches the Trainer as
+        ``PoolConfig.member_exec="vmap"`` (``spy_trainer`` stops the run
+        there). --profile-dir is ported: the run goes on to the Trainer, which
         refuses a feature prior given with --perceptual 0 (the JAX CLI's
         ValueError), as it does without the flag; --multihost is ported and
         names torchrun's variables where they are missing (the trace and a
@@ -276,6 +298,7 @@ class TestCLI:
 
         for var in ENV_VARS:
             monkeypatch.delenv(var, raising=False)
+        spy_trainer(monkeypatch)
         with pytest.raises(exc, match=item):
             cli.main(["train", "--results-dir", str(tmp_path), "--device", "cpu",
                       *flag])

@@ -36,6 +36,7 @@ from srgan_tpu_torch.models.srresnet import SRResNet
 from srgan_tpu_torch.training import steps as tsteps
 from srgan_tpu_torch.training import train_state as tts
 from srgan_tpu_torch.training.loop import Trainer
+from srgan_tpu_torch.training.stacked_pool import stacked_pool_gan_step, stacked_pool_step
 from srgan_tpu_torch.utils.params import from_jax_params, to_jax_params
 
 torch.set_num_threads(1)
@@ -227,10 +228,15 @@ class TestLogging:
 
 class TestTrainer:
     def test_unported_paths_name_roadmap(self, tmp_path):
-        """The vmap pool executor still raises naming its item; the
-        perceptual term is ported and builds its extractor instead."""
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(Config(pool=PoolConfig(num_generators=3, member_exec="vmap")),
+        """Both are ported: ``member_exec="vmap"`` builds the vmap pool
+        executor (and refuses ``remat``, which cannot recompute under
+        ``torch.func.vmap``); the perceptual term builds its extractor."""
+        pool = PoolConfig(num_generators=3, member_exec="vmap")
+        trainer = Trainer(Config(model=ModelConfig(**SMALL), pool=pool), device="cpu")
+        assert trainer.spool is not None
+        assert trainer.pool_steps == (stacked_pool_step, stacked_pool_gan_step)
+        with pytest.raises(ValueError, match="remat"):
+            Trainer(Config(model=ModelConfig(**SMALL, remat=True), pool=pool),
                     device="cpu")
         cfg = Config(model=ModelConfig(**SMALL),
                      train=TrainConfig(perceptual_weight=0.1, vgg_layers=("conv1_2",),

@@ -12,10 +12,18 @@ Modes:
                the params-parity oracle of ``pixel``.
 ``gan_pool``   a pool of 2 with GAN, the device cache and reduce_metrics,
                1 epoch.
+``vmap_pool``  a pool of 2 with GAN through the vmap pool executor
+               (``member_exec="vmap"``; every member takes the adversarial
+               term from the third batch on), streaming pipeline, 1 epoch.
+``vmap_reference``  ONE process of ``vmap_pool`` over the same global batch
+               order, as ``reference`` is to ``pixel``.
 ``sigterm``    like ``pixel`` but 200 epochs; the test sends SIGTERM to
                rank 0 only, and every rank must stop at the same boundary.
 ``resume``     relaunch of ``sigterm``'s cluster with ``resume=True`` on its
                shared results dir, trained to a short end.
+``spatial``    ``parallel.spatial.upscale_spatially_sharded`` of every
+               case of ``tests/test_torch_spatial.py`` (``SPATIAL_CASES``:
+               head, norm, width), each output in ``<out>.spatial.npz``.
 ``steps``      the process-group loss and the DDP pixel step on fixed
                inputs: each rank's loss of its half against the whole
                batch's, and each rank's params after one
@@ -38,7 +46,8 @@ def build_cfg(args, batch_size: int):
     from srgan_tpu_torch.config import (Config, DataConfig, DiscriminatorConfig,
                                         ModelConfig, PoolConfig, TrainConfig)
 
-    gan = args.mode == "gan_pool"
+    vmap = args.mode in ("vmap_pool", "vmap_reference")
+    gan = args.mode == "gan_pool" or vmap
     sig = args.mode in ("sigterm", "resume")
     epochs = {"sigterm": 200, "resume": getattr(args, "resume_num_epochs", 4)}
     return Config(
@@ -46,8 +55,12 @@ def build_cfg(args, batch_size: int):
         discriminator=DiscriminatorConfig(num_filters=8, num_stages=2),
         data=DataConfig(hr_size=(32, 32), upscale_factor=2, batch_size=batch_size,
                         split_ratio=1.0, num_workers=2,
-                        device_cache="on" if gan else "off"),
-        pool=PoolConfig(num_generators=2 if gan else 1),
+                        device_cache="on" if gan and not vmap else "off"),
+        pool=PoolConfig(num_generators=2 if gan else 1,
+                        member_exec="vmap" if vmap else "scan",
+                        # the vmap run takes the adversarial term from the
+                        # third batch on (the gate reads losses two behind)
+                        p_gan_above=1.0 if vmap else 0.1),
         train=TrainConfig(
             num_epochs=epochs.get(args.mode, 1),
             validate_every=1000 if sig else 1,
@@ -112,10 +125,28 @@ def steps_mode(args, rank, world, group):
     return out
 
 
+def spatial_mode(args):
+    """Every spatial case's W-sharded output, from the test module's own
+    model and image makers."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_spatial import SPATIAL_CASES, spatial_case
+
+    from srgan_tpu_torch.parallel.mesh import default_group
+    from srgan_tpu_torch.parallel.spatial import upscale_spatially_sharded
+
+    outs = {}
+    for case in SPATIAL_CASES:
+        model, img = spatial_case(*case)
+        outs["-".join(map(str, case))] = upscale_spatially_sharded(
+            model, img, default_group(), device="cpu")
+    np.savez(args.out + ".spatial.npz", **outs)
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--mode", required=True, choices=[
-        "pixel", "reference", "gan_pool", "sigterm", "resume", "steps"])
+        "pixel", "reference", "gan_pool", "vmap_pool", "vmap_reference", "sigterm",
+        "resume", "steps", "spatial"])
     p.add_argument("--train-dir", default="")
     p.add_argument("--val-dir", default="")
     p.add_argument("--results-dir", default="")
@@ -126,19 +157,23 @@ def main():
     from srgan_tpu_torch.parallel import mesh
 
     out = {"mode": args.mode}
-    if args.mode != "reference":
+    one_process = args.mode in ("reference", "vmap_reference")
+    if not one_process:
         mesh.initialize_multihost("cpu")
     group = mesh.default_group()
     world, rank = mesh.process_shard_info(group)
     out.update(world=world, rank=rank)
-    if args.mode == "steps":
-        out.update(steps_mode(args, rank, world, group))
+    if args.mode in ("steps", "spatial"):
+        if args.mode == "steps":
+            out.update(steps_mode(args, rank, world, group))
+        else:
+            spatial_mode(args)
         with open(args.out, "w") as f:
             json.dump(out, f)
         torch.distributed.destroy_process_group()
         return
 
-    batch = LOCAL_BATCH if args.mode != "reference" else 2 * LOCAL_BATCH
+    batch = 2 * LOCAL_BATCH if one_process else LOCAL_BATCH
     if args.mode == "resume":
         from srgan_tpu_torch.training.checkpoint import latest_ckpt_dir
 
@@ -148,7 +183,7 @@ def main():
         args.resume_num_epochs = max(4, out["resume_from_epoch"] + 2)
     cfg = build_cfg(args, batch)
 
-    if args.mode == "reference":
+    if one_process:
         # each global batch is the two ranks' local batches, rank 0 first
         from srgan_tpu_torch.data import pipeline as pl
 
