@@ -157,7 +157,13 @@ Phases, each of which must pass (any failure exits non-zero):
      once a member a scan step); the flagship pool of 3, bf16, batch 12,
      pixel and GAN, vmap beside scan (ms/step, img/s, peak memory, launches
      a step: vmap 1/1/1, scan 3/3/3; a profiled epoch of each pixel run);
-     the vmap GAN run twice over 2 epochs, bit-identical;
+     the vmap GAN run twice over 2 epochs, bit-identical; the vmap executor
+     on remat models (``--pool-exec vmap --remat``), pixel and GAN at batch
+     12 beside the vmap runs without remat (losses bit-identical, params
+     and Adam moments bit-identical or within JAX's vmap-against-scan
+     bars, peak memory below theirs, launches 1/1/1 a step; a profiled
+     pixel epoch), its GAN run twice over 2 epochs, bit-identical, and a
+     pixel run at batch 24;
   17. W-sharded inference (``parallel/spatial.py``): the flagship generator
      on the LR 1080x1920 frame, fp32 and bf16, without a group and under a
      one-rank NCCL group, against the model's own forward, with ms;
@@ -608,12 +614,14 @@ class Flagship:
     ``n_gen`` generators; ``gan``: with the flagship discriminator (4
     stages, 64 filters) and ``p_gan_above=1.0``; ``steps`` an epoch;
     ``train``: more ``TrainConfig`` fields (the perceptual term's);
-    ``data``: more ``DataConfig`` fields (salt and pepper)."""
+    ``data``: more ``DataConfig`` fields (salt and pepper); ``remat``: each
+    residual block recomputed in the backward."""
 
     def __init__(self, dev, compute_dtype: str, batch: int, clips, results_dir: str,
                  layout: str = "default", n_gen: int = 1, gan: bool = False,
                  steps: int = FLAGSHIP_STEPS, train: dict | None = None, tag: str = "",
-                 data: dict | None = None, member_exec: str = "scan"):
+                 data: dict | None = None, member_exec: str = "scan",
+                 remat: bool = False):
         from srgan_tpu_torch.config import (Config, DataConfig, DiscriminatorConfig,
                                             ModelConfig, PoolConfig, TrainConfig)
         from srgan_tpu_torch.data.dataset import ArrayDataset
@@ -623,14 +631,15 @@ class Flagship:
         self.tag = f"{compute_dtype} batch {batch}" + (
             " channels_last" if layout == "channels_last" else "") + (
             f" pool {n_gen}" if n_gen > 1 else "") + (
-            f" {member_exec}" if member_exec != "scan" else "") + (" gan" if gan else "") + tag
+            f" {member_exec}" if member_exec != "scan" else "") + (
+            " remat" if remat else "") + (" gan" if gan else "") + tag
         self.batch = batch
         self.steps = steps
         # K1-K3 launches a step: once a member, or once for all (vmap)
         self.vmap = member_exec == "vmap" and n_gen > 1
         self.per_step = 1 if self.vmap else n_gen
         cfg = Config(
-            model=ModelConfig(compute_dtype=compute_dtype),
+            model=ModelConfig(compute_dtype=compute_dtype, remat=remat),
             discriminator=DiscriminatorConfig(compute_dtype=compute_dtype),
             data=DataConfig(batch_size=batch, device_cache="on", **(data or {})),
             pool=PoolConfig(num_generators=n_gen, member_exec=member_exec,
@@ -1866,14 +1875,22 @@ def _set_deterministic(on: bool) -> None:
     torch.use_deterministic_algorithms(on)
 
 
-def _run_state(run) -> list:
-    """Every tensor the run's next step reads: each member's params and Adam
-    moments, then D's, on the host."""
+def _host_states(run) -> list:
+    """Each member's and then D's ``(params, mu, nu, scale)`` on the host;
+    ``scale``, 1/(1 − b1^count), turns Adam's first moment into the size of
+    a gradient."""
     t = run.trainer
     states = list(t.spool.state) if t.spool is not None else [m.state for m in t.pool.members]
     if t.d_state is not None:
         states.append(t.d_state)
-    return [x.detach().cpu() for st in states for x in (*st.params, *st.mu, *st.nu)]
+    return [([p.detach().cpu() for p in st.params], [m.cpu() for m in st.mu],
+             [v.cpu() for v in st.nu], 1.0 / (1.0 - st.b1 ** st.count)) for st in states]
+
+
+def _run_state(run) -> list:
+    """Every tensor the run's next step reads: each member's params and Adam
+    moments, then D's, on the host."""
+    return [x for p, mu, nu, _ in _host_states(run) for x in (*p, *mu, *nu)]
 
 
 def _bit_equal(a: list, b: list) -> bool:
@@ -2374,44 +2391,85 @@ def vmap_small_phase(rk, dev) -> None:
     print(f"vmap small: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _remat_margins(got: list, want: list) -> tuple:
+    """Two runs' ``_host_states``: whether every tensor is bit-identical; the
+    margin (``_margin`` at JAX's vmap-against-scan bars, rtol 2e-4 / atol
+    1e-6) of the Adam moments; that of the params over the elements whose
+    gradient (|mu|·scale) is at least ``EPS_REGIME``; the count of those
+    left out."""
+    pairs = list(zip(got, want))
+    same = all(torch.equal(x, y) for a, b in pairs
+               for x, y in zip(a[0] + a[1] + a[2], b[0] + b[1] + b[2]))
+    moments = max(_margin(x, y, 2e-4, 1e-6) for a, b in pairs
+                  for x, y in zip(a[1] + a[2], b[1] + b[2]))
+    params, left_out = -math.inf, 0
+    for (p_a, _, _, _), (p_b, mu_b, _, scale) in pairs:
+        for p, q, mu in zip(p_a, p_b, mu_b):
+            keep = (mu * scale).abs() >= EPS_REGIME
+            left_out += int((~keep).sum())
+            if keep.any():
+                params = max(params, _margin(p[keep], q[keep], 2e-4, 1e-6))
+    return same, moments, params, left_out
+
+
+def _epoch_losses(rec) -> dict:
+    """The loss values of a run's warm-up and counted epochs."""
+    return {f"{e} {k}": v for e, m in (("warm", rec["warm"]), ("counted", rec["metrics"]))
+            for k, v in m.items() if k.endswith("loss")}
+
+
+# (name, executor, gan, remat, batch) of the flagship pool-of-3 bf16 runs
+VMAP_LEGS = (("vmap pool 3", "vmap", False, False, 12), ("scan pool 3", "scan", False, False, 12),
+             ("vmap pool 3 gan", "vmap", True, False, 12),
+             ("vmap pool 3 gan again", "vmap", True, False, 12),
+             ("vmap remat pool 3", "vmap", False, True, 12),
+             ("vmap remat pool 3 gan", "vmap", True, True, 12),
+             ("vmap remat pool 3 gan again", "vmap", True, True, 12),
+             ("vmap remat pool 3 batch 24", "vmap", False, True, 24))
+
+
 def vmap_flagship_phase(rk, dev, scan_gan: dict) -> dict:
-    """The pool of 3 at the flagship size, batch 12, bf16, through
-    ``Trainer.train_epoch``: the vmap executor (pixel, then GAN) beside the
-    scan executor (pixel here; GAN from the GAN phase's run of the same
-    config, ``scan_gan``), each a warm-up and a counted epoch of 3 steps:
-    ms/step, img/s, peak memory, launches a step (vmap 1/1/1, K2/K3 on the
-    member axis; scan 3/3/3). Then the vmap GAN run again from the same
-    seeds: two runs of 2 epochs, every network's params and Adam moments
-    and the losses bit-identical under the deterministic mode."""
+    """The pool of 3 at the flagship size, bf16, through
+    ``Trainer.train_epoch``, each run a warm-up and a counted epoch of 3
+    steps: ms/step, img/s, peak memory, launches a step (vmap 1/1/1, K2/K3
+    on the member axis; scan 3/3/3). At batch 12 the vmap executor (pixel,
+    then GAN) beside the scan executor (pixel here; GAN from the GAN phase's
+    run of the same config, ``scan_gan``), then the vmap executor on remat
+    models, pixel and GAN, against the vmap runs without remat: the losses
+    of both epochs bit-identical, every network's params and Adam moments
+    bit-identical or within JAX's bars (``_remat_margins``), peak memory
+    below theirs. The vmap GAN run, with and without remat, again from the
+    same seeds: two runs of 2 epochs, every network's params and Adam
+    moments and the losses bit-identical under the deterministic mode. Last
+    a remat pixel run at batch 24 (no run without remat there)."""
     t0 = time.perf_counter()
-    clips = smooth_clips(dev, FLAGSHIP_STEPS * 12, 1)
-    out = {}
+    clips = {12: smooth_clips(dev, FLAGSHIP_STEPS * 12, 1),
+             24: smooth_clips(dev, FLAGSHIP_STEPS * 24, 1)}
+    out, hosts, losses = {}, {}, {}
     with tempfile.TemporaryDirectory() as results_dir:
-        for name, ex, gan in (("vmap pool 3", "vmap", False), ("scan pool 3", "scan", False),
-                              ("vmap pool 3 gan", "vmap", True),
-                              ("vmap pool 3 gan again", "vmap", True)):
+        for name, ex, gan, remat, batch in VMAP_LEGS:
             torch.cuda.empty_cache()
-            run = Flagship(dev, "bfloat16", 12, clips, results_dir, n_gen=POOL_N, gan=gan,
-                           member_exec=ex)
+            run = Flagship(dev, "bfloat16", batch, clips[batch], results_dir, n_gen=POOL_N,
+                           gan=gan, member_exec=ex, remat=remat)
             try:
                 if name.endswith("again"):
-                    m, _ = run.epoch()
-                    rec = {"metrics": m}
+                    rec = {"metrics": run.epoch()[0]}
                 else:
                     rec = out[name] = run.counted(rk)
-                rec["state"] = _run_state(run)
-                if not gan:  # where the pixel step's time goes, each executor
+                rec["warm"] = run.warm
+                losses[name] = _epoch_losses(rec)
+                if batch == 12 and ex == "vmap":
+                    hosts[name] = _host_states(run)
+                if not gan and batch == 12:  # where the pixel step's time goes
                     profile_epoch(run.trainer, run.pipe, FLAGSHIP_STEPS, run.tag)
             finally:
                 run.close()
                 del run
-        first, again = out["vmap pool 3 gan"], rec
-        losses = [{k: v for k, v in r["metrics"].items() if k.endswith("loss")}
-                  for r in (first, again)]
-        check(_bit_equal(first.pop("state"), again["state"]) and losses[0] == losses[1],
-              f"vmap determinism: two flagship bf16 pool-of-3 GAN runs differ: {losses}")
-        out["vmap pool 3"].pop("state")
-        out["scan pool 3"].pop("state")
+    for first in ("vmap pool 3 gan", "vmap remat pool 3 gan"):
+        again = f"{first} again"
+        check(_remat_margins(hosts[first], hosts[again])[0] and losses[first] == losses[again],
+              f"vmap determinism: two flagship bf16 {first} runs differ: "
+              f"{losses[first]} / {losses[again]}")
     for kind, v, s in (("pixel", out["vmap pool 3"], out["scan pool 3"]),
                        ("gan", out["vmap pool 3 gan"], scan_gan)):
         per = {ex: "/".join(str(r["counts"][k] // FLAGSHIP_STEPS) for k in LOSS_KERNELS)
@@ -2423,9 +2481,40 @@ def vmap_flagship_phase(rk, dev, scan_gan: dict) -> dict:
               f"scan {s['step_ms']:.2f} ms/step ({12e3 / s['step_ms']:.2f} img/s, peak "
               f"{s['peak_gib']:.2f} GiB): vmap/scan {v['step_ms'] / s['step_ms']:.3f}; K1/K2/K3 "
               f"launches a step vmap {per['vmap']}, scan {per['scan']}", flush=True)
-    print(f"vmap determinism flagship bf16 pool {POOL_N} gan, 2 epochs twice: params and "
-          f"Adam moments of {POOL_N} generators and D and the losses bit-identical; phase "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for kind, plain, remat in (("pixel", "vmap pool 3", "vmap remat pool 3"),
+                               ("gan", "vmap pool 3 gan", "vmap remat pool 3 gan")):
+        v, r = out[plain], out[remat]
+        per = "/".join(str(r["counts"][k] // FLAGSHIP_STEPS) for k in LOSS_KERNELS)
+        check(per == "1/1/1", f"vmap remat flagship {kind}: K1/K2/K3 launches a step {per}")
+        check(losses[remat] == losses[plain],
+              f"vmap remat flagship {kind}: losses {losses[remat]} differ from the vmap "
+              f"run's without remat {losses[plain]}")
+        same, moments, params, left_out = _remat_margins(hosts[remat], hosts[plain])
+        check(same or (moments <= 0 and params <= 0),
+              f"vmap remat flagship {kind}: against the vmap run without remat, Adam moments "
+              f"margin {moments:.2e}, params margin {params:.2e} (rtol 2e-4 / atol 1e-6)")
+        check(r["peak_gib"] < v["peak_gib"],
+              f"vmap remat flagship {kind}: peak {r['peak_gib']:.2f} GiB not below the vmap "
+              f"run's {v['peak_gib']:.2f}")
+        state = ("params and Adam moments bit-identical" if same else
+                 f"params margin {params:.2e} ({left_out} elements with |g| < {EPS_REGIME:g} "
+                 f"left out), Adam moments margin {moments:.2e}")
+        print(f"vmap remat flagship bf16 pool {POOL_N} {kind} batch 12: remat "
+              f"{r['step_ms']:.2f} ms/step ({12e3 / r['step_ms']:.2f} img/s, peak "
+              f"{r['peak_gib']:.2f} GiB) against vmap {v['step_ms']:.2f} ms/step "
+              f"({12e3 / v['step_ms']:.2f} img/s, peak {v['peak_gib']:.2f} GiB): ms/step "
+              f"remat/vmap {r['step_ms'] / v['step_ms']:.3f}, peak remat/vmap "
+              f"{r['peak_gib'] / v['peak_gib']:.3f}; K1/K2/K3 launches a step {per}; losses of "
+              f"both epochs bit-identical; {state}", flush=True)
+    b24 = out["vmap remat pool 3 batch 24"]
+    per = "/".join(str(b24["counts"][k] // FLAGSHIP_STEPS) for k in LOSS_KERNELS)
+    check(per == "1/1/1", f"vmap remat flagship batch 24: K1/K2/K3 launches a step {per}")
+    print(f"vmap remat flagship bf16 pool {POOL_N} pixel batch 24: {b24['step_ms']:.2f} "
+          f"ms/step ({24e3 / b24['step_ms']:.2f} img/s), peak {b24['peak_gib']:.2f} GiB; "
+          f"K1/K2/K3 launches a step {per}", flush=True)
+    print(f"vmap determinism flagship bf16 pool {POOL_N} gan, with and without remat, 2 "
+          f"epochs twice: params and Adam moments of {POOL_N} generators and D and the "
+          f"losses bit-identical; phase {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 

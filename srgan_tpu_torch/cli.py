@@ -19,7 +19,8 @@ process group ``torchrun`` describes (``MASTER_ADDR``, ``MASTER_PORT``,
 ``--device cpu``) and trains data-parallel, one rank a device;
 ``--profile-dir`` writes a ``torch.profiler`` trace of the run there;
 ``--pool-exec vmap`` runs a pool's members in one vmapped region
-(``training/stacked_pool.py``) instead of the member loop.
+(``training/stacked_pool.py``) instead of the member loop, with
+``--remat`` recomputing each residual block in the backward.
 """
 
 from __future__ import annotations
@@ -71,7 +72,8 @@ def _add_train(sub):
                    help="stacked-pool executor (pools of more than one "
                         "generator): scan, the member loop (one member's "
                         "activations alive); vmap, all members in one "
-                        "region (N x activation memory, no --remat)")
+                        "region (N x activation memory: needs --remat + "
+                        "smaller batch at flagship shapes)")
     p.add_argument("--no-mutual", action="store_true",
                    help="disable the epoch-end weak-learns-from-strong "
                         "interpolation (readme.md:13)")

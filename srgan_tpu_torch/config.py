@@ -161,8 +161,9 @@ class PoolConfig:
     # "scan" (default): a loop over the members, each one's gradient and
     # Adam step in turn, one member's activations alive at a time. "vmap":
     # all members in one torch.func.vmap region, N x activations alive at
-    # the backward (no remat), the loss kernels launched once over the
-    # member axis. Same update semantics either way (parity-tested).
+    # the backward (with remat N x each block's input), the loss kernels
+    # launched once over the member axis. Same update semantics either way
+    # (parity-tested).
     member_exec: str = "scan"  # "scan" | "vmap"
     # Which generator the shared discriminator trains against each batch.
     # "leader" (default): the current best member's SR — the README names

@@ -29,6 +29,10 @@ output (flax ``_normalize``). The input is cast once, by the stem;
 LeakyReLU, ReLU, the pixel (un)shuffles, both skip adds and the block
 carry stay bf16; the output comes back as f32, so the loss kernels keep
 their f32 input.
+
+``remat=True`` recomputes each residual block's branch in the backward
+(:class:`RematBlock`), keeping only the block's input alive, on one model
+and under the vmap pool executor's ``torch.func.vmap`` alike.
 """
 
 from __future__ import annotations
@@ -41,7 +45,6 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from srgan_tpu_torch.config import ModelConfig
 
@@ -115,10 +118,94 @@ class ResidualBlock(nn.Module):
         self.norm1 = _norm(norm, group_norm_groups, f, cd)
         self.conv2 = Conv2d(f, f, 3, padding=1, compute_dtype=cd)
         self.norm2 = _norm(norm, group_norm_groups, f, cd)
+        # fixed here: under torch.func.functional_call the params are plain
+        # tensors, which named_parameters() does not list
+        self._param_names = [name for name, _ in self.named_parameters()]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.norm1(self.conv1(x)))
-        return self.norm2(self.conv2(out)) + x
+    def params(self) -> list:
+        """The block's params in ``_param_names`` order, as it holds them
+        now (functional_call's tensors inside it)."""
+        return [functools.reduce(getattr, name.split("."), self)
+                for name in self._param_names]
+
+    def forward(self, x: torch.Tensor, skip: bool = True) -> torch.Tensor:
+        """The block's output, or with ``skip=False`` its residual branch
+        alone (what :class:`RematBlock` recomputes)."""
+        out = self.norm2(self.conv2(F.relu(self.norm1(self.conv1(x)))))
+        return out + x if skip else out
+
+
+def _branch(block: ResidualBlock):
+    """``block``'s residual branch as a function of ``(x, *params)``, the
+    params in ``_param_names`` order in place of its own."""
+    def branch(x, *params):
+        return torch.func.functional_call(
+            block, dict(zip(block._param_names, params)), (x,), {"skip": False})
+    return branch
+
+
+def _recompute_grads(fn, saved, g):
+    """Rerun ``fn(*saved)`` with a graph and return the gradient of its output
+    (cotangent ``g``) to each saved input."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in saved]
+        return torch.autograd.grad(fn(*inputs), inputs, g)
+
+
+class RematBlock(torch.autograd.Function):
+    """A residual block's branch, recomputed in the backward (``nn.remat`` in
+    JAX): the forward runs without a graph and keeps only the block's input
+    and params; the backward reruns the branch with one and differentiates
+    it. Called as ``RematBlock.apply(block, x, *params) + x``, params in the
+    block's ``_param_names`` order. The skip add stays outside, so the
+    input's two gradients meet in autograd's engine as they do without
+    remat (the same bits); the bf16 casts live in the branch and are
+    recomputed with it.
+
+    Under ``torch.func.vmap`` (the vmap pool executor, whose members' params
+    are batched) the rule hands the unwrapped (N, …) tensors to
+    :class:`PooledRematBlock`, so the saved input and the recompute live
+    outside the vmap, where the executor's backward runs:
+    ``torch.utils.checkpoint`` would save the vmap's batched tensors, which
+    are gone by then."""
+
+    @staticmethod
+    def forward(block, x, *params):
+        return _branch(block)(x, *params)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        block, x, *params = inputs
+        ctx.block = block
+        ctx.save_for_backward(x, *params)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, *_recompute_grads(_branch(ctx.block), ctx.saved_tensors, g)
+
+    @staticmethod
+    def vmap(info, in_dims, block, x, *params):
+        n = info.batch_size
+        args = [t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
+                for t, d in zip((x, *params), in_dims[1:])]
+        return PooledRematBlock.apply(block, *args), 0
+
+
+class PooledRematBlock(torch.autograd.Function):
+    """:class:`RematBlock` of N members at once: ``x`` and every param carry
+    the member axis first; the branch runs under ``torch.func.vmap``, in the
+    forward without a graph and again in the backward."""
+
+    @staticmethod
+    def forward(block, x, *params):
+        return torch.func.vmap(_branch(block))(x, *params)
+
+    setup_context = RematBlock.setup_context
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, *_recompute_grads(torch.func.vmap(_branch(ctx.block)),
+                                       ctx.saved_tensors, g)
 
 
 class SRResNet(nn.Module):
@@ -197,7 +284,7 @@ class SRResNet(nn.Module):
         out = out1
         for block in self.blocks:
             if self.remat and torch.is_grad_enabled():
-                out = checkpoint(block, out, use_reentrant=False)
+                out = RematBlock.apply(block, out, *block.params()) + out
             else:
                 out = block(out)
         out = self.mid(out) + out1  # global skip

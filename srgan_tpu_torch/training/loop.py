@@ -6,7 +6,8 @@ pixel phase or the GAN phase.
 The ``Trainer`` holds a ``GeneratorPool`` of N members, as the JAX one
 does; the checkpoints and the epoch record are built on it. A pool of more
 than one member runs the stacked pool (``training/stacked_pool.py``, the
-scan executor) unless ``PoolConfig.stacked`` is off, which runs the member
+scan executor, or with ``member_exec="vmap"`` the vmap executor, remat
+models included) unless ``PoolConfig.stacked`` is off, which runs the member
 list; the stacked state is mirrored back into the list pool before every
 snapshot. With ``use_gan`` the Trainer also holds the shared
 discriminator and its ``TrainState`` (Adam, no EMA). With
@@ -142,15 +143,6 @@ class Trainer:
             raise ValueError(
                 f"PoolConfig.member_exec must be 'vmap' or 'scan', got "
                 f"{cfg.pool.member_exec!r}"
-            )
-        if self.use_stacked and cfg.pool.member_exec == "vmap" and cfg.model.remat:
-            # JAX remats inside its vmap; torch.utils.checkpoint recomputes
-            # outside torch.func.vmap, where its saved inputs are gone
-            raise ValueError(
-                "PoolConfig.member_exec='vmap' cannot run ModelConfig.remat: "
-                "torch.utils.checkpoint does not recompute under torch.func."
-                "vmap; 'scan' computes the same updates with one member's "
-                "activations alive at a time"
             )
         # the stacked pool's executor: the member loop, or the vmap region
         self.pool_steps = (

@@ -39,9 +39,12 @@ D(sr) runs inside it, the perceptual extractor outside it on the N·B SR
 images. Each member's slice of the gradients then goes to its own
 ``TrainState.apply_gradients`` (its in-place Adam, averaged over the group
 under ``--multihost``): JAX's ``vmap(member_update)``. The stacked leaves
-are copies; a step reads the members' params afresh. ``torch.utils.
-checkpoint`` cannot recompute inside ``vmap``, so this executor refuses a
-model with ``remat`` (the ``Trainer`` says so).
+are copies; a step reads the members' params afresh. A model with
+``remat`` runs as it comes: each residual block's ``RematBlock`` has a
+vmap rule that takes the (N, …) block input and params out of the vmap
+into ``PooledRematBlock``, which keeps only those for the backward and
+recomputes the N members' branch there, under a vmap of its own (JAX's
+``nn.remat`` blocks inside ``jax.vmap``).
 """
 
 from __future__ import annotations

@@ -317,3 +317,33 @@ class TestCudaMemberAxis:
             out.append((m["packed"].cpu(), dict(rk.launches)))
         assert out[0][1] == {"edge_stats": 1, "loss_sums": 1, "loss_grad": 1}
         np.testing.assert_allclose(out[0][0][:3].numpy(), out[1][0][:3].numpy(), rtol=1e-4)
+
+    def test_vmap_remat_pool_step_matches_cpu(self, cuda_device):
+        """One pixel step of the vmap executor (N=3) on remat models on the
+        card: its losses equal the card's step without remat bit for bit and
+        the CPU's remat step at rel 1e-4, the members' Adam moments (their
+        gradients) the CPU's at 1e-2 of their norm; one K1, K2 and K3
+        launch."""
+        from srgan_tpu_torch.config import ModelConfig
+        from srgan_tpu_torch.models.srresnet import init_generator
+        from srgan_tpu_torch.training.stacked_pool import stacked_pool_step
+        from srgan_tpu_torch.training.train_state import TrainState
+
+        rng = np.random.default_rng(0)
+        hr = rng.random((2, 32, 64, 3), dtype=np.float32)
+        lr_imgs = rng.random((2, 8, 16, 3), dtype=np.float32)
+        out = {}
+        for d, remat in ((cuda_device, True), (cuda_device, False),
+                         (torch.device("cpu"), True)):
+            cfg = ModelConfig(num_features=8, num_residuals=2, remat=remat)
+            states = [TrainState(init_generator(cfg, seed=i, device=d)) for i in range(3)]
+            rk.reset_launches()
+            states, m = stacked_pool_step(states, torch.from_numpy(hr).to(d),
+                                          torch.from_numpy(lr_imgs).to(d), 1e-3)
+            out[d.type, remat] = (m["packed"].cpu(), dict(rk.launches),
+                                  torch.cat([mu.cpu().flatten() for st in states for mu in st.mu]))
+        card, plain, cpu = out["cuda", True], out["cuda", False], out["cpu", True]
+        assert card[1] == {"edge_stats": 1, "loss_sums": 1, "loss_grad": 1}
+        assert torch.equal(card[0], plain[0])
+        np.testing.assert_allclose(card[0][:3].numpy(), cpu[0][:3].numpy(), rtol=1e-4)
+        assert float((card[2] - cpu[2]).norm()) <= 1e-2 * float(cpu[2].norm())

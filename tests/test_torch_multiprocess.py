@@ -15,7 +15,8 @@
   (e) a SIGTERM to rank 0 alone stops both ranks at the same boundary with
       no deadlock, and a resume on the shared results dir completes;
   (d') the vmap pool executor's GAN pool of 2 under the group equals the
-      one-process run over the same global batch order (atol 2.5e-4);
+      one-process run over the same global batch order (atol 2.5e-4), and
+      on remat models equals the same cluster without remat bit for bit;
   (f) the process-group loss of each rank's half is the whole batch's,
       and the DDP pixel step (``parallel/data_parallel.py``) equals JAX's
       ``make_shardmap_pixel_step`` on a 2-device mesh.
@@ -164,12 +165,17 @@ def test_gan_pool_cluster_runs_in_lockstep(data_dirs, tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-def test_vmap_pool_cluster_matches_single_process(data_dirs, tmp_path):
+@pytest.fixture(scope="module")
+def vmap_pool_cluster(data_dirs, tmp_path_factory):
+    return _cluster("vmap_pool", tmp_path_factory.mktemp("tmp_vmap"), data_dirs)
+
+
+def test_vmap_pool_cluster_matches_single_process(data_dirs, tmp_path, vmap_pool_cluster):
     """``--pool-exec vmap`` under ``--multihost``: the pooled K1-K3's totals
     and every gradient go through the group; both ranks end bit-identical,
     and the leader's params equal one process over the same global batch
     order at the JAX test's bar."""
-    results, outs = _cluster("vmap_pool", tmp_path, data_dirs)
+    results, outs = vmap_pool_cluster
     ref, ref_outs = _cluster("vmap_reference", tmp_path, data_dirs, n_procs=1)
     r0, r1 = results[0]["record"], results[1]["record"]
     _same_records(r0, r1)
@@ -189,6 +195,22 @@ def test_vmap_pool_cluster_matches_single_process(data_dirs, tmp_path):
         np.testing.assert_allclose(a, b, rtol=0, atol=2.5e-4)
     for k in ("g_loss", "com_loss", "tv_loss", "d_loss"):
         assert r0[k] == pytest.approx(ref[0]["record"][k], rel=2e-2), k
+
+
+def test_vmap_remat_pool_cluster_matches_vmap_pool(data_dirs, tmp_path, vmap_pool_cluster):
+    """``--pool-exec vmap --remat`` under ``--multihost``: every rank's
+    record, pool bookkeeping and leader params equal the cluster's without
+    remat bit for bit (the recompute runs the same ops)."""
+    results, outs = _cluster("vmap_remat_pool", tmp_path, data_dirs)
+    plain, plain_outs = vmap_pool_cluster
+    clocks = ("wall_s", "images_per_sec")
+    for rank in range(2):
+        r, p = results[rank]["record"], plain[rank]["record"]
+        assert set(r) == set(p)
+        assert {k: r[k] for k in r if k not in clocks} == {k: p[k] for k in p if k not in clocks}
+        assert results[rank]["pool_meta"] == plain[rank]["pool_meta"]
+        for a, b in zip(_params(outs[rank]), _params(plain_outs[rank])):
+            np.testing.assert_array_equal(a, b)
 
 
 class TestSigterm:

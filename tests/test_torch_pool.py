@@ -85,10 +85,11 @@ def _assert_tree_close(got: dict, want, atol, rtol=0.0):
         np.testing.assert_allclose(node, leaf, atol=atol, rtol=rtol)
 
 
-def _pools(n, dtype="float32", ema_decays=None):
-    """n JAX generator states and the port's, same weights."""
+def _pools(n, dtype="float32", ema_decays=None, **model):
+    """n JAX generator states and the port's, same weights; ``model``: more
+    ``ModelConfig`` fields for both."""
     ema_decays = ema_decays or [0.0] * n
-    kw = dict(compute_dtype=dtype, **SMALL_G)
+    kw = dict(compute_dtype=dtype, **{**SMALL_G, **model})
     j_states, t_states = [], []
     for i in range(n):
         model, params = j_init_generator(JModelConfig(**kw), jax.random.key(i),

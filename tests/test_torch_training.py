@@ -229,15 +229,17 @@ class TestLogging:
 class TestTrainer:
     def test_unported_paths_name_roadmap(self, tmp_path):
         """Both are ported: ``member_exec="vmap"`` builds the vmap pool
-        executor (and refuses ``remat``, which cannot recompute under
-        ``torch.func.vmap``); the perceptual term builds its extractor."""
+        executor, with ``remat`` too (each block recomputed outside the
+        vmap); the perceptual term builds its extractor."""
         pool = PoolConfig(num_generators=3, member_exec="vmap")
         trainer = Trainer(Config(model=ModelConfig(**SMALL), pool=pool), device="cpu")
         assert trainer.spool is not None
         assert trainer.pool_steps == (stacked_pool_step, stacked_pool_gan_step)
-        with pytest.raises(ValueError, match="remat"):
-            Trainer(Config(model=ModelConfig(**SMALL, remat=True), pool=pool),
-                    device="cpu")
+        trainer = Trainer(Config(model=ModelConfig(**SMALL, remat=True), pool=pool),
+                          device="cpu")
+        assert trainer.spool is not None
+        assert trainer.pool_steps == (stacked_pool_step, stacked_pool_gan_step)
+        assert all(m.state.model.remat for m in trainer.pool.members)
         cfg = Config(model=ModelConfig(**SMALL),
                      train=TrainConfig(perceptual_weight=0.1, vgg_layers=("conv1_2",),
                                        results_dir=str(tmp_path)))

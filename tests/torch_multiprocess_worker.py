@@ -17,6 +17,7 @@ Modes:
                term from the third batch on), streaming pipeline, 1 epoch.
 ``vmap_reference``  ONE process of ``vmap_pool`` over the same global batch
                order, as ``reference`` is to ``pixel``.
+``vmap_remat_pool``  ``vmap_pool`` on ``remat`` models.
 ``sigterm``    like ``pixel`` but 200 epochs; the test sends SIGTERM to
                rank 0 only, and every rank must stop at the same boundary.
 ``resume``     relaunch of ``sigterm``'s cluster with ``resume=True`` on its
@@ -46,12 +47,13 @@ def build_cfg(args, batch_size: int):
     from srgan_tpu_torch.config import (Config, DataConfig, DiscriminatorConfig,
                                         ModelConfig, PoolConfig, TrainConfig)
 
-    vmap = args.mode in ("vmap_pool", "vmap_reference")
+    vmap = args.mode in ("vmap_pool", "vmap_reference", "vmap_remat_pool")
     gan = args.mode == "gan_pool" or vmap
     sig = args.mode in ("sigterm", "resume")
     epochs = {"sigterm": 200, "resume": getattr(args, "resume_num_epochs", 4)}
     return Config(
-        model=ModelConfig(num_features=8, num_residuals=1, upscale_factor=2),
+        model=ModelConfig(num_features=8, num_residuals=1, upscale_factor=2,
+                          remat=args.mode == "vmap_remat_pool"),
         discriminator=DiscriminatorConfig(num_filters=8, num_stages=2),
         data=DataConfig(hr_size=(32, 32), upscale_factor=2, batch_size=batch_size,
                         split_ratio=1.0, num_workers=2,
@@ -145,8 +147,8 @@ def spatial_mode(args):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--mode", required=True, choices=[
-        "pixel", "reference", "gan_pool", "vmap_pool", "vmap_reference", "sigterm",
-        "resume", "steps", "spatial"])
+        "pixel", "reference", "gan_pool", "vmap_pool", "vmap_reference",
+        "vmap_remat_pool", "sigterm", "resume", "steps", "spatial"])
     p.add_argument("--train-dir", default="")
     p.add_argument("--val-dir", default="")
     p.add_argument("--results-dir", default="")
