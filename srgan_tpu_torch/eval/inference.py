@@ -46,6 +46,7 @@ from srgan_tpu_torch.utils.platform import (
     make_deterministic,
     resolve_device,
 )
+from srgan_tpu_torch.utils.profiling import span, to_host
 
 
 def to_float01(image: np.ndarray) -> np.ndarray:
@@ -125,6 +126,8 @@ class Upscaler:
         self.replicas = [self.members] + [
             [copy.deepcopy(m).to(d).eval() for m in self.members]
             for d in self.devices[1:]]
+        # calls of upscale / upscale_u8: the request id of their spans
+        self.requests = 0
 
     @classmethod
     def random_init(cls, cfg: Optional[ModelConfig] = None, seed: int = 0, **kw):
@@ -231,19 +234,31 @@ class Upscaler:
     def upscale(self, image: np.ndarray) -> np.ndarray:
         """HWC (or NHWC) image in [0, 1] (uint8 accepted) → upscaled HWC
         float32 in [0, 1]."""
-        x, single = self._batch(image)
-        sr = self.forward(x)
-        if self.enhance_output:
-            sr = enhance(sr)
-        out = sr.clamp(0.0, 1.0).cpu().numpy()
+        self.requests += 1
+        with span("serve.request", request=self.requests):
+            with span("serve.upload"):
+                x, single = self._batch(image)
+            with span("serve.forward"):
+                sr = self.forward(x)
+                if self.enhance_output:
+                    sr = enhance(sr)
+                sr = sr.clamp(0.0, 1.0)
+            with span("serve.fetch"):
+                out = to_host(sr, "Upscaler.upscale").numpy()
         return out[0] if single else out
 
     def upscale_u8(self, image: np.ndarray) -> np.ndarray:
         """Like :meth:`upscale` but returns uint8, quantised on the device
         (``steps.infer_step_u8``): a quarter of the bytes to fetch, and
         bit-identical to ``array_to_image(self.upscale(x))``'s pixels."""
-        x, single = self._batch(image)
-        out = self._run(x, u8=True).cpu().numpy()
+        self.requests += 1
+        with span("serve.request", request=self.requests):
+            with span("serve.upload"):
+                x, single = self._batch(image)
+            with span("serve.forward"):
+                out = self._run(x, u8=True)
+            with span("serve.fetch"):
+                out = to_host(out, "Upscaler.upscale_u8").numpy()
         return out[0] if single else out
 
     def upscale_file(self, in_path: str, out_path: str) -> None:

@@ -49,6 +49,7 @@ here. ``debug_nans`` checks every drained loss vector and raises
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import signal
@@ -92,6 +93,7 @@ from srgan_tpu_torch.utils.platform import (
     resolve_device,
 )
 from srgan_tpu_torch.utils.plotting import save_comparison, save_rating_curve
+from srgan_tpu_torch.utils.profiling import span, tags, to_host
 
 # the epoch record's loss keys, in the JAX loop's order
 _SUM_KEYS = ("g_loss", "com_loss", "tv_loss", "g_d_loss", "d_loss", "p_loss")
@@ -105,6 +107,18 @@ def _mix(seed: int, k: int) -> int:
 def _epoch_generator(device: torch.device, seed: int, epoch: int) -> torch.Generator:
     """A generator for one epoch's draws, seeded from (seed, epoch)."""
     return torch.Generator(device=device).manual_seed(_mix(seed, epoch))
+
+
+def _batches(batches, epoch: int):
+    """The epoch's batches, each ``next()`` (gather and prepare, or the
+    prefetch wait) inside a ``data.batch`` span."""
+    it = iter(batches)
+    for step in itertools.count():
+        with span("data.batch", epoch=epoch, step=step):
+            item = next(it, None)
+        if item is None:
+            return
+        yield item
 
 
 def _packed_names(n_members: int, has_d: bool) -> list:
@@ -320,45 +334,47 @@ class Trainer:
         self.throughput.begin()
         progress = ProgressLine(cfg.train.progress, total=pipeline.steps_per_epoch())
 
-        def drain(packed, batch_idx):
+        def drain(packed, batch_idx, images):
             # one host fetch a batch: (5, N) losses, + d_loss in the GAN phase
-            vals = packed.reshape(-1).tolist()
-            self._check_finite(vals, names, epoch, batch_idx)
-            if use_gan:
-                sums["d_loss"] += vals.pop()
-            g, com, tv, g_d, p = np.asarray(vals).reshape(5, -1)
-            self.spool.record_losses(com)
-            for k, v in zip(PACKED_KEYS, (g, com, tv, g_d, p)):
-                sums[k] += float(v[0])  # the epoch record logs member 0
-            progress.update(
-                epoch, n_batches,
-                {"g_loss": float(g[0]),
-                 "d_loss": sums["d_loss"] / max(1, n_batches) if use_gan else None},
-                self.throughput.images_per_sec(),
-            )
+            with span("loop.drain", epoch=epoch, step=batch_idx):
+                vals = to_host(packed.reshape(-1), "train_epoch.drain").tolist()
+                self._check_finite(vals, names, epoch, batch_idx)
+                if use_gan:
+                    sums["d_loss"] += vals.pop()
+                g, com, tv, g_d, p = np.asarray(vals).reshape(5, -1)
+                self.spool.record_losses(com)
+                for k, v in zip(PACKED_KEYS, (g, com, tv, g_d, p)):
+                    sums[k] += float(v[0])  # the epoch record logs member 0
+                self.throughput.add(images)
+                progress.update(
+                    epoch, batch_idx + 1,
+                    {"g_loss": float(g[0]),
+                     "d_loss": sums["d_loss"] / (batch_idx + 1) if use_gan else None},
+                    self.throughput.images_per_sec(),
+                )
 
         pending: Optional[tuple] = None
-        for hr, lr_imgs in pipeline.epoch(epoch, gen):
-            if self._should_stop(n_batches):
-                self._epoch_interrupted = True
-                break
-            # batch k's mask is drawn before batch k−1's losses are drained:
-            # the gate reads losses through batch k−2, as in JAX
-            gan_mask = self.spool.sample_gan_mask(use_gan)
-            if use_gan:
-                self.spool.state, self.d_state, metrics = pool_gan_step(
-                    self.spool.state, self.d_state, hr, lr_imgs, gan_mask,
-                    g_lr, d_lr, d_target_idx=self._d_target(n_batches), **px,
-                )
-            else:
-                self.spool.state, metrics = pool_step(
-                    self.spool.state, hr, lr_imgs, g_lr, **px,
-                )
-            if pending is not None:
-                drain(*pending)
-            pending = (metrics["packed"], n_batches)
-            n_batches += 1
-            self.throughput.add(hr.shape[0])
+        for hr, lr_imgs in _batches(pipeline.epoch(epoch, gen), epoch):
+            with tags(epoch=epoch, step=n_batches):
+                if self._should_stop(n_batches):
+                    self._epoch_interrupted = True
+                    break
+                # batch k's mask is drawn before batch k−1's losses are
+                # drained: the gate reads losses through batch k−2, as in JAX
+                gan_mask = self.spool.sample_gan_mask(use_gan)
+                if use_gan:
+                    self.spool.state, self.d_state, metrics = pool_gan_step(
+                        self.spool.state, self.d_state, hr, lr_imgs, gan_mask,
+                        g_lr, d_lr, d_target_idx=self._d_target(n_batches), **px,
+                    )
+                else:
+                    self.spool.state, metrics = pool_step(
+                        self.spool.state, hr, lr_imgs, g_lr, **px,
+                    )
+                if pending is not None:
+                    drain(*pending)
+                pending = (metrics["packed"], n_batches, hr.shape[0])
+                n_batches += 1
         if pending is not None:
             drain(*pending)
         progress.close()
@@ -391,80 +407,87 @@ class Trainer:
         self.throughput.begin()
         progress = ProgressLine(cfg.train.progress, total=pipeline.steps_per_epoch())
 
-        def drain(packed, layout, batch_idx):
+        def drain(packed, layout, batch_idx, images):
             # one host fetch a batch: every member's packed vector, then a
             # separate D update's loss
-            vals = packed.tolist()
-            names = [f"{k}[{i}]" for i, _, size in layout
-                     for k in (*PACKED_KEYS, "d_loss")[:size]]
-            if len(names) < len(vals):
-                names.append("d_loss")
-            self._check_finite(vals, names, epoch, batch_idx)
-            at = 0
-            for i, used_gan, size in layout:
-                v = vals[at:at + size]
-                at += size
-                if size == 6:
-                    sums["d_loss"] += v[5]
-                # the ordering signal is the pixel loss only
-                self.pool.record_loss(i, v[1], used_gan=used_gan)
-                if i == 0:
-                    for k, x in zip(PACKED_KEYS, v):
-                        sums[k] += x
-            if at < len(vals):
-                sums["d_loss"] += vals[at]
-            progress.update(
-                epoch, n_batches,
-                {"g_loss": vals[0],
-                 "d_loss": sums["d_loss"] / max(1, n_batches) if has_d else None},
-                self.throughput.images_per_sec(),
-            )
+            with span("loop.drain", epoch=epoch, step=batch_idx):
+                vals = to_host(packed, "train_epoch.drain").tolist()
+                names = [f"{k}[{i}]" for i, _, size in layout
+                         for k in (*PACKED_KEYS, "d_loss")[:size]]
+                if len(names) < len(vals):
+                    names.append("d_loss")
+                self._check_finite(vals, names, epoch, batch_idx)
+                at = 0
+                for i, used_gan, size in layout:
+                    v = vals[at:at + size]
+                    at += size
+                    if size == 6:
+                        sums["d_loss"] += v[5]
+                    # the ordering signal is the pixel loss only
+                    self.pool.record_loss(i, v[1], used_gan=used_gan)
+                    if i == 0:
+                        for k, x in zip(PACKED_KEYS, v):
+                            sums[k] += x
+                if at < len(vals):
+                    sums["d_loss"] += vals[at]
+                self.throughput.add(images)
+                progress.update(
+                    epoch, batch_idx + 1,
+                    {"g_loss": vals[0],
+                     "d_loss": sums["d_loss"] / (batch_idx + 1) if has_d else None},
+                    self.throughput.images_per_sec(),
+                )
 
         pending: Optional[tuple] = None
-        for hr, lr_imgs in pipeline.epoch(epoch, gen):
-            if self._should_stop(n_batches):
-                # batch-boundary stop: the drain below settles the last step;
-                # train() snapshots and --resume restarts this epoch
-                self._epoch_interrupted = True
-                break
-            d_idx = self._d_target(n_batches) if has_d else None
-            packed, layout = [], []
-            sr_for_d, d_in_packed = None, False
-            for i, member in enumerate(members):
-                used_gan = has_d and self.pool.choose_gan(i)
-                want_sr = i == d_idx
-                if used_gan and want_sr and len(members) == 1:
-                    # one member: its GAN update and the D update fuse; with
-                    # more, members after d_idx would read the updated D
-                    member.state, self.d_state, metrics = gan_train_step(
-                        member.state, self.d_state, hr, lr_imgs, g_lr, d_lr, **px,
-                    )
-                    d_in_packed = True
-                elif used_gan:
-                    member.state, metrics = generator_gan_step(
-                        member.state, self.d_state.model, hr, lr_imgs, g_lr,
-                        return_sr=want_sr, **px,
-                    )
-                else:
-                    member.state, metrics = generator_pixel_step(
-                        member.state, hr, lr_imgs, g_lr, return_sr=want_sr, **px,
-                    )
-                if want_sr and "sr" in metrics:
-                    sr_for_d = metrics.pop("sr")
-                packed.append(metrics["packed"])
-                layout.append((i, used_gan, metrics["packed"].numel()))
-            if has_d and not d_in_packed:
-                # the shared D, after every member read it
-                self.d_state, d_metrics = discriminator_step_on_sr(
-                    self.d_state, hr, sr_for_d, d_lr
-                )
-                packed.append(d_metrics["d_loss"].reshape(1))
-            # batch k is queued before batch k−1's scalars are fetched
-            if pending is not None:
-                drain(*pending)
-            pending = (torch.cat(packed), layout, n_batches)
-            n_batches += 1
-            self.throughput.add(hr.shape[0])
+        for hr, lr_imgs in _batches(pipeline.epoch(epoch, gen), epoch):
+            with tags(epoch=epoch, step=n_batches):
+                if self._should_stop(n_batches):
+                    # batch-boundary stop: the drain below settles the last
+                    # step; train() snapshots and --resume restarts this epoch
+                    self._epoch_interrupted = True
+                    break
+                d_idx = self._d_target(n_batches) if has_d else None
+                packed, layout = [], []
+                sr_for_d, d_in_packed = None, False
+                for i, member in enumerate(members):
+                    used_gan = has_d and self.pool.choose_gan(i)
+                    want_sr = i == d_idx
+                    with span("step.member", member=i, gan=bool(used_gan)):
+                        if used_gan and want_sr and len(members) == 1:
+                            # one member: its GAN update and the D update
+                            # fuse; with more, members after d_idx would read
+                            # the updated D
+                            member.state, self.d_state, metrics = gan_train_step(
+                                member.state, self.d_state, hr, lr_imgs, g_lr, d_lr,
+                                **px,
+                            )
+                            d_in_packed = True
+                        elif used_gan:
+                            member.state, metrics = generator_gan_step(
+                                member.state, self.d_state.model, hr, lr_imgs, g_lr,
+                                return_sr=want_sr, **px,
+                            )
+                        else:
+                            member.state, metrics = generator_pixel_step(
+                                member.state, hr, lr_imgs, g_lr, return_sr=want_sr,
+                                **px,
+                            )
+                    if want_sr and "sr" in metrics:
+                        sr_for_d = metrics.pop("sr")
+                    packed.append(metrics["packed"])
+                    layout.append((i, used_gan, metrics["packed"].numel()))
+                if has_d and not d_in_packed:
+                    # the shared D, after every member read it
+                    with span("step.d"):
+                        self.d_state, d_metrics = discriminator_step_on_sr(
+                            self.d_state, hr, sr_for_d, d_lr
+                        )
+                    packed.append(d_metrics["d_loss"].reshape(1))
+                # batch k is queued before batch k−1's scalars are fetched
+                if pending is not None:
+                    drain(*pending)
+                pending = (torch.cat(packed), layout, n_batches, hr.shape[0])
+                n_batches += 1
         if pending is not None:
             drain(*pending)
         progress.close()
@@ -492,7 +515,8 @@ class Trainer:
         # global batch k of equal size); the ranks' values in rank order
         psnr = mesh.all_gather_cat(torch.stack(psnrs), self.group)
         ssim = mesh.all_gather_cat(torch.stack(ssims), self.group)
-        return float(psnr.mean()), float(ssim.mean())
+        return (float(to_host(psnr.mean(), "compute_score")),
+                float(to_host(ssim.mean(), "compute_score")))
 
     def validate(self, val_pipeline: TrainPipeline, epoch: int) -> Optional[str]:
         """One validation batch → [LR↑ | SR | HR] comparison PNG
@@ -505,7 +529,7 @@ class Trainer:
             # each rank renders the grid of its own rows (the reference's
             # per-rank comparison PNGs, ``src/train.py:233-260``)
             return save_comparison(
-                lr_up.cpu().numpy(), sr.cpu().numpy(), hr.cpu().numpy(),
+                *(to_host(x, "validate").numpy() for x in (lr_up, sr, hr)),
                 self.cfg.train.results_dir, self.cfg.train.run_prefix, epoch,
                 rank=self._rank,
             )
@@ -615,83 +639,94 @@ class Trainer:
         last = {}
         try:
             for epoch in range(start_epoch, cfg.train.num_epochs):
-                t0 = time.perf_counter()
-                self._epoch_interrupted = False
-                train_metrics = self.train_epoch(pipeline, epoch)
-                if self._epoch_interrupted:
-                    # snapshot with epoch=epoch (not epoch+1) so that
-                    # --resume restarts the interrupted epoch; no re-sort or
-                    # scoring on a partial epoch
-                    ckpt.wait_for_checkpoints()
-                    self._save(cfg.train.run_prefix, epoch)
-                    print(
-                        f"stopped mid-epoch {epoch + 1} after "
-                        f"{train_metrics['n_batches']} batches; --resume "
-                        "restarts this epoch", flush=True,
-                    )
-                    # the last completed epoch's record, flagged
-                    return {
-                        **last,
-                        "epoch": epoch,
-                        "interrupted": True,
-                        "interrupted_after_batches": train_metrics["n_batches"],
-                    }
-                active_pool = self.spool if self.spool is not None else self.pool
-                active_pool.end_epoch()
+                with span("loop.epoch", epoch=epoch):
+                    t0 = time.perf_counter()
+                    self._epoch_interrupted = False
+                    with span("loop.train_epoch"):
+                        train_metrics = self.train_epoch(pipeline, epoch)
+                    if self._epoch_interrupted:
+                        # snapshot with epoch=epoch (not epoch+1) so that
+                        # --resume restarts the interrupted epoch; no re-sort
+                        # or scoring on a partial epoch
+                        with span("loop.snapshot"):
+                            ckpt.wait_for_checkpoints()
+                            self._save(cfg.train.run_prefix, epoch)
+                        print(
+                            f"stopped mid-epoch {epoch + 1} after "
+                            f"{train_metrics['n_batches']} batches; --resume "
+                            "restarts this epoch", flush=True,
+                        )
+                        # the last completed epoch's record, flagged
+                        return {
+                            **last,
+                            "epoch": epoch,
+                            "interrupted": True,
+                            "interrupted_after_batches": train_metrics["n_batches"],
+                        }
+                    active_pool = self.spool if self.spool is not None else self.pool
+                    with span("loop.end_epoch"):
+                        active_pool.end_epoch()
 
-                if (cfg.train.checkpoint_every
-                        and (epoch + 1) % cfg.train.checkpoint_every == 0):
-                    # non-blocking: the disk write overlaps the next epochs
-                    self._save(cfg.train.run_prefix, epoch + 1, block=False)
+                    if (cfg.train.checkpoint_every
+                            and (epoch + 1) % cfg.train.checkpoint_every == 0):
+                        # non-blocking: the disk write overlaps the next epochs
+                        with span("loop.snapshot"):
+                            self._save(cfg.train.run_prefix, epoch + 1, block=False)
 
-                if (cfg.train.validate_every > 0
-                        and (epoch + 1) % cfg.train.validate_every == 0):
-                    self.validate(val_pipeline, epoch)
+                    if (cfg.train.validate_every > 0
+                            and (epoch + 1) % cfg.train.validate_every == 0):
+                        with span("loop.validate"):
+                            self.validate(val_pipeline, epoch)
 
-                psnr, ssim = self.compute_score(val_pipeline, epoch)
-                self.history["epochs"].append(epoch + 1)
-                self.history["psnr"].append(psnr)
-                self.history["ssim"].append(ssim)
+                    with span("loop.score"):
+                        psnr, ssim = self.compute_score(val_pipeline, epoch)
 
-                if cfg.train.keep_best and psnr > self._best_psnr:
-                    self._best_psnr = psnr
-                    self._save(f"{cfg.train.run_prefix}-best", epoch + 1,
-                               block=False)
+                    if cfg.train.keep_best and psnr > self._best_psnr:
+                        self._best_psnr = psnr
+                        with span("loop.snapshot"):
+                            self._save(f"{cfg.train.run_prefix}-best", epoch + 1,
+                                       block=False)
 
-                record = {
-                    "epoch": epoch + 1,
-                    "psnr": psnr,
-                    "ssim": ssim,
-                    "wall_s": time.perf_counter() - t0,
-                    "pool": active_pool.snapshot(),
-                    **train_metrics,
-                }
-                if active_pool.gan_threshold is not None:
-                    # the gate's (possibly auto-calibrated) threshold
-                    record["gan_threshold"] = active_pool.gan_threshold
-                if cfg.train.reduce_metrics:
-                    record = mesh.reduce_metrics(record, self.group)
-                self.logger.log(record)
-                last = record
-                print(
-                    f"Epoch [{epoch + 1}/{cfg.train.num_epochs}] "
-                    f"{cfg.train.run_prefix} Loss: {train_metrics['g_loss']:.6f} "
-                    f"psnr={psnr:.3f} ssim={ssim:.4f} "
-                    f"({train_metrics['images_per_sec']:.1f} img/s)"
-                )
-                # epoch-boundary stop: a SIGTERM after the last batch;
-                # collective, as in _should_stop
-                if mesh.any_process_flag(self._stop_requested, self.group):
-                    ckpt.wait_for_checkpoints()
-                    self._save(cfg.train.run_prefix, epoch + 1)
-                    print(
-                        f"stopped after epoch {epoch + 1}; resume with "
-                        "--resume", flush=True,
-                    )
-                    return last
+                    with span("loop.record"):
+                        self.history["epochs"].append(epoch + 1)
+                        self.history["psnr"].append(psnr)
+                        self.history["ssim"].append(ssim)
+                        record = {
+                            "epoch": epoch + 1,
+                            "psnr": psnr,
+                            "ssim": ssim,
+                            "wall_s": time.perf_counter() - t0,
+                            "pool": active_pool.snapshot(),
+                            **train_metrics,
+                        }
+                        if active_pool.gan_threshold is not None:
+                            # the gate's (possibly auto-calibrated) threshold
+                            record["gan_threshold"] = active_pool.gan_threshold
+                        if cfg.train.reduce_metrics:
+                            record = mesh.reduce_metrics(record, self.group)
+                        self.logger.log(record)
+                        last = record
+                        print(
+                            f"Epoch [{epoch + 1}/{cfg.train.num_epochs}] "
+                            f"{cfg.train.run_prefix} Loss: {train_metrics['g_loss']:.6f} "
+                            f"psnr={psnr:.3f} ssim={ssim:.4f} "
+                            f"({train_metrics['images_per_sec']:.1f} img/s)"
+                        )
+                    # epoch-boundary stop: a SIGTERM after the last batch;
+                    # collective, as in _should_stop
+                    if mesh.any_process_flag(self._stop_requested, self.group):
+                        with span("loop.snapshot"):
+                            ckpt.wait_for_checkpoints()
+                            self._save(cfg.train.run_prefix, epoch + 1)
+                        print(
+                            f"stopped after epoch {epoch + 1}; resume with "
+                            "--resume", flush=True,
+                        )
+                        return last
 
-            ckpt.wait_for_checkpoints()  # settle in-flight periodic saves
-            self._save(cfg.train.run_prefix, cfg.train.num_epochs)
+            with span("loop.snapshot"):
+                ckpt.wait_for_checkpoints()  # settle in-flight periodic saves
+                self._save(cfg.train.run_prefix, cfg.train.num_epochs)
             save_rating_curve(
                 self.history["epochs"],
                 self.history["psnr"],
@@ -704,7 +739,8 @@ class Trainer:
             pipeline.close()
             val_pipeline.close()
             # settle an in-flight snapshot even on failure
-            ckpt.wait_for_checkpoints()
+            with span("loop.snapshot"):
+                ckpt.wait_for_checkpoints()
             if handler_installed:
                 # prev_handler is None when the prior disposition was
                 # installed outside Python: fall back to the default

@@ -67,6 +67,7 @@ from srgan_tpu_torch.training.steps import (
     real_features,
 )
 from srgan_tpu_torch.training.train_state import TrainState
+from srgan_tpu_torch.utils.profiling import span
 
 
 def stack_states(states: Sequence[TrainState]) -> List[TrainState]:
@@ -113,21 +114,22 @@ def _scan_pool_update(states: Sequence[TrainState], hr, lr_imgs, g_lr: float,
     com_l, tv_l, g_d_l, p_l, g_l = [], [], [], [], []
     sr_keep = None
     for i, st in enumerate(states):
-        st.model.train()
-        sr = st.model(lr_imgs)
-        com, tv = reconstruction_loss(hr, sr, st.group)
-        g_d = zero
-        if d_model is not None:
-            # a member with mask 0 takes no gradient through D
-            with torch.set_grad_enabled(bool(mask[i])):
-                g_d = generator_adversarial_loss(d_real, d_model(sr))
-        loss = com + tv + float(mask[i]) * g_d
-        p = zero
-        if f_real is not None:
-            p = perceptual_term(sr, f_real, extractor)
-            loss = loss + p_weight * p
-        grads = torch.autograd.grad(loss, st.params)
-        st.apply_gradients(grads, g_lr)
+        with span("step.member", member=i, gan=bool(mask[i])):
+            st.model.train()
+            sr = st.model(lr_imgs)
+            com, tv = reconstruction_loss(hr, sr, st.group)
+            g_d = zero
+            if d_model is not None:
+                # a member with mask 0 takes no gradient through D
+                with torch.set_grad_enabled(bool(mask[i])):
+                    g_d = generator_adversarial_loss(d_real, d_model(sr))
+            loss = com + tv + float(mask[i]) * g_d
+            p = zero
+            if f_real is not None:
+                p = perceptual_term(sr, f_real, extractor)
+                loss = loss + p_weight * p
+            grads = torch.autograd.grad(loss, st.params)
+            st.apply_gradients(grads, g_lr)
         if i == d_target_idx:
             sr_keep = sr.detach()
         com_l.append(com.detach())
@@ -183,8 +185,9 @@ def scanned_pool_gan_step(
     losses, sr_d = _scan_pool_update(states, hr, lr_imgs, g_lr, d_state.model,
                                      real_preds.detach(), gan_mask, d_target_idx,
                                      extractor, p_weight)
-    d_state, d_metrics = discriminator_step_on_sr(d_state, hr, sr_d, d_lr,
-                                                  real_preds=real_preds)
+    with span("step.d"):
+        d_state, d_metrics = discriminator_step_on_sr(d_state, hr, sr_d, d_lr,
+                                                      real_preds=real_preds)
     metrics = {**_metrics(losses), "d_loss": d_metrics["d_loss"]}
     metrics["packed"] = pack_metrics(metrics, d_metrics["d_loss"], states[0].group)
     return states, d_state, metrics
@@ -254,8 +257,9 @@ def stacked_pool_step(
     the perceptual term where ``extractor`` is given. ``metrics["packed"]``
     is (5, N); ``return_sr`` adds ``metrics["sr"]``, member
     ``d_target_idx``'s pre-update SR."""
-    losses, sr = _vmap_pool_update(states, hr, lr_imgs, lr, d_target_idx=d_target_idx,
-                                   extractor=extractor, p_weight=p_weight)
+    with span("step.pool"):
+        losses, sr = _vmap_pool_update(states, hr, lr_imgs, lr, d_target_idx=d_target_idx,
+                                       extractor=extractor, p_weight=p_weight)
     metrics = _metrics(losses)
     metrics["packed"] = pack_metrics(metrics, group=states[0].group)
     if return_sr:
@@ -280,11 +284,13 @@ def stacked_pool_gan_step(
     members read it detached), then the one D update on member
     ``d_target_idx``'s pre-update SR."""
     real_preds = d_state.model(hr)
-    losses, sr_d = _vmap_pool_update(states, hr, lr_imgs, g_lr, d_state.model,
-                                     real_preds.detach(), gan_mask, d_target_idx,
-                                     extractor, p_weight)
-    d_state, d_metrics = discriminator_step_on_sr(d_state, hr, sr_d, d_lr,
-                                                  real_preds=real_preds)
+    with span("step.pool"):
+        losses, sr_d = _vmap_pool_update(states, hr, lr_imgs, g_lr, d_state.model,
+                                         real_preds.detach(), gan_mask, d_target_idx,
+                                         extractor, p_weight)
+    with span("step.d"):
+        d_state, d_metrics = discriminator_step_on_sr(d_state, hr, sr_d, d_lr,
+                                                      real_preds=real_preds)
     metrics = {**_metrics(losses), "d_loss": d_metrics["d_loss"]}
     metrics["packed"] = pack_metrics(metrics, d_metrics["d_loss"], states[0].group)
     return states, d_state, metrics

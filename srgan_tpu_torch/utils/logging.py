@@ -85,7 +85,9 @@ class ProgressLine:
 
 
 class Throughput:
-    """images/sec over a window — the BASELINE headline metric."""
+    """images/sec over a window — the BASELINE headline metric. The loop
+    adds a batch's images when its losses are drained (the host has read
+    them, so the card has finished the batch), not when it is queued."""
 
     def __init__(self):
         self.images = 0

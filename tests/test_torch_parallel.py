@@ -6,7 +6,7 @@ dicts; the head folds equal to JAX's (and exact as convolutions, 1e-5);
 reconstruction loss at world size 1 (a one-rank gloo group) against no
 group, to fp32 rounding (the plain form sums in fp64 totals; the kernels'
 world-1 bit-equality is held on their emulated source,
-``tests/test_torch_recon_source.py``); and the profiling trio. Two-process
+``tests/test_torch_recon_source.py``); and the trace file. Two-process
 runs are in ``tests/test_torch_multiprocess.py``."""
 
 import json
@@ -23,7 +23,6 @@ import torch.nn.functional as F
 from srgan_tpu.data.pipeline import EpochSampler as JEpochSampler
 from srgan_tpu.models import srresnet as jsr
 from srgan_tpu.parallel import mesh as jmesh
-from srgan_tpu.utils.profiling import StepTimer as JStepTimer
 from srgan_tpu_torch.data.pipeline import EpochSampler
 from srgan_tpu_torch.models import srresnet as tsr
 from srgan_tpu_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
@@ -207,15 +206,6 @@ class TestProfiling:
         text = path.read_text()
         assert path.exists() and "my_region" in text
         assert isinstance(json.loads(text), dict)
-
-    def test_step_timer_summary_equals_jax(self):
-        ours, theirs = profiling.StepTimer(), JStepTimer()
-        assert ours.summary() == theirs.summary()
-        ours.durations_ms = theirs.durations_ms = [5.0, 1.0, 3.0, 9.0, 2.5, 7.0, 4.0]
-        assert ours.summary() == theirs.summary()
-        with ours.step():
-            pass
-        assert ours.summary()["steps"] == 8
 
     def test_cli_profile_dir(self, tmp_path, rng):
         """``train --profile-dir`` traces the run: the trace file appears and
