@@ -195,6 +195,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
+
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM, bf16 dense tensor cores
@@ -467,6 +469,95 @@ def kernel_phase(rk, dev) -> dict:
     return out
 
 
+# GroupNorm's forward at the shapes the model runs it without a gradient:
+# a 4K serving request's LR (batch 1) and a scoring batch (24 of 128x256)
+GROUP_NORM_SHAPES = {"serve": (1, 64, 540, 960), "score": (24, 64, 128, 256)}
+
+
+def group_norm_phase(dev) -> dict:
+    """GroupNorm's forward kernels (``csrc/group_norm.cu``) in bf16 at each
+    shape of ``GROUP_NORM_SHAPES``: against torch's route on the f32 cast
+    and the float64 plain version (one bf16 ulp), two calls bit for bit,
+    the vector path; then each kernel's device ms a call by the profiler,
+    the wrapper's ms by events, beside the bound (bf16 read twice, written
+    once), the plain version's ms, ``torch.native_group_norm`` on the f32
+    cast alone (``library_ms``) and with its two casts (the route the
+    kernels replace)."""
+    out = {}
+    for tag, shape in GROUP_NORM_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(0)
+        x = (torch.randn(shape, generator=g, device=dev) * 1.5 + 0.3).bfloat16()
+        w = torch.rand(shape[1], generator=g, device=dev) + 0.5
+        b = torch.rand(shape[1], generator=g, device=dev) - 0.5
+        xf = x.float()
+        n, c = shape[:2]
+        hw = shape[2] * shape[3]
+        gk.reset_launches()
+        kern = lambda: gk.group_norm_cuda(x, w, b, 8, 1e-6)
+        ys = [kern(), kern()]
+        native = gk.native_group_norm(x, w, b, 8, 1e-6, torch.bfloat16)
+        y_p, mean_p, var_p = gk.group_norm_plain(x[:2], w, b, 8, 1e-6)
+        torch.cuda.synchronize()
+        check(gk.paths["vec"] == 2, f"group norm {tag}: paths {gk.paths}")
+        check(torch.equal(*ys), f"group norm {tag}: two calls differ")
+        # the plain version's result rounded once: one bf16 ulp at each value;
+        # torch's route (f32 statistics): one ulp at the largest |y|
+        ulp = lambda t: torch.exp2(torch.floor(torch.log2(t.double().abs().clamp_min(1e-30))) - 7)
+        want = y_p.float().bfloat16()
+        worst_plain = float(((ys[0][:2].double() - want.double()).abs()
+                             / torch.maximum(ulp(ys[0][:2]), ulp(want))).max())
+        gap_native = float((ys[0].double() - native.double()).abs().max())
+        top_ulp = float(ulp(native.abs().max()))
+        check(worst_plain <= 1 and gap_native <= top_ulp,
+              f"group norm {tag}: {worst_plain} ulp from plain, {gap_native} from "
+              f"torch's (one ulp at max|y| {top_ulp})")
+        del ys, native, y_p, want
+
+        with profile(activities=[ProfilerActivity.CUDA]):
+            kern()
+            torch.cuda.synchronize()
+        reps = 20
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                kern()
+            torch.cuda.synchronize()
+        by_kernel: dict = {}
+        for e in _device_events(prof):
+            for k in gk.KERNELS:
+                if k in e.name:
+                    by_kernel[k] = by_kernel.get(k, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+        check(set(by_kernel) == set(gk.KERNELS), f"group norm {tag}: profiler saw {by_kernel}")
+        names = sorted({e.name for e in _device_events(prof) if "group_norm" in e.name})
+        route = lambda: torch.native_group_norm(x.float(), w, b, n, c, hw, 8, 1e-6)[0].bfloat16()
+        library = lambda: torch.native_group_norm(xf, w, b, n, c, hw, 8, 1e-6)
+        plain = lambda: gk.group_norm_plain(x, w, b, 8, 1e-6)
+        fns = {"ms": kern, "route_ms": route, "library_ms": library,
+               # float64 copies of a scoring batch: not timed there
+               "plain_ms": plain if n == 1 else None}
+        rec = {k: fn and statistics.median(time_ms(fn, windows=3, reps=10))
+               for k, fn in fns.items()}
+        n_bytes = 3 * x.numel() * 2
+        rec.update(
+            shape=list(shape),
+            device_ms=sum(by_kernel.values()),
+            kernel_device_ms=by_kernel,
+            bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+            ulps_from_plain=worst_plain, gap_from_route=gap_native,
+            profiled_names=names,
+        )
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        rec["gb_per_s"] = n_bytes / (rec["device_ms"] * 1e-3) / 1e9
+        out[tag] = rec
+        print(f"group norm {tag} {shape}: " + json.dumps(rec), flush=True)
+        del x, xf
+    return out
+
+
+def group_norm_counts() -> dict:
+    """GroupNorm's launches and routes since ``gk.reset_launches()``."""
+    return {"launches": gk.launches["group_norm"], "paths": dict(gk.paths)}
+
+
 # Bars of the steps on the card against the CPU, each network's Adam first
 # moment after one step, (1 - b1)·g, on its whole norm (tests/test_torch_gan.py
 # says why, and why bf16's is loose), and the adversarial loss terms, abs.
@@ -680,13 +771,18 @@ class Flagship:
     def counted(self, rk) -> dict:
         """The main path's counted epoch: launch counts zeroed just before
         and read just after; K1, K2 and K3 once per step and member, vector
-        path."""
+        path; GroupNorm's kernels never (a training step's norms need their
+        gradient: torch's, by ``group_norm_counts``)."""
         want = self.steps * self.per_step
         before = self.snapshot()
         torch.cuda.reset_peak_memory_stats()
         rk.reset_launches()
+        gk.reset_launches()
         m, dt = self.epoch()
         counts, paths, pooled = dict(rk.launches), dict(rk.paths), dict(rk.pooled)
+        norms = group_norm_counts()
+        check(norms["launches"] == 0 and norms["paths"]["vec"] == 0,
+              f"{self.tag}: GroupNorm's kernels in a training step: {norms}")
         peak = torch.cuda.max_memory_allocated()
         want_pooled = self.steps if self.vmap else 0
         check(all(v == want_pooled for v in pooled.values()),
@@ -713,9 +809,10 @@ class Flagship:
               f"{self.steps} steps {step_ms:.2f} ms/step "
               f"{self.batch * self.steps / dt:.2f} img/s; g_loss "
               f"{self.warm['g_loss']:.5f} -> {m['g_loss']:.5f}; peak memory "
-              f"{peak / 2**30:.2f} GiB; launches {counts}; paths {paths}{gan}", flush=True)
+              f"{peak / 2**30:.2f} GiB; launches {counts}; paths {paths}; group norm "
+              f"{norms}{gan}", flush=True)
         return {"counts": counts, "step_ms": step_ms, "peak_gib": peak / 2**30,
-                "p_loss": m["p_loss"], "metrics": m}
+                "p_loss": m["p_loss"], "metrics": m, "group_norm": norms}
 
     def close(self):
         self.pipe.close()
@@ -750,13 +847,21 @@ def training_phase(rk, dev) -> dict:
                 if compute_dtype == "float32":
                     val = TrainPipeline(run.trainer.cfg.data, ArrayDataset(val_clips),
                                         use_split=False, seed=1, augment=False)
+                    gk.reset_launches()
                     try:
                         psnr, ssim = run.trainer.compute_score(val, 1)
                     finally:
                         val.close()
+                    scoring = group_norm_counts()
                     check(math.isfinite(psnr) and math.isfinite(ssim),
                           "validation score not finite")
-                    print(f"train {run.tag}: psnr {psnr:.3f} ssim {ssim:.4f}", flush=True)
+                    # a scoring forward: 32 norms, no gradient, the kernels
+                    check(scoring["launches"] > 0 and scoring["launches"] % 32 == 0
+                          and scoring["launches"] == scoring["paths"]["vec"]
+                          and scoring["paths"]["grad"] == 0,
+                          f"scoring: GroupNorm {scoring}, expected the kernels only")
+                    print(f"train {run.tag}: psnr {psnr:.3f} ssim {ssim:.4f}; group norm "
+                          f"{scoring}", flush=True)
             runs.pop(("bfloat16", 24)).close()  # free its cached clips
 
             # layout: default, channels_last, channels_last, default for
@@ -790,7 +895,7 @@ def training_phase(rk, dev) -> dict:
     print(f"train: bf16 against fp32 at batch 12: {out[('float32', 12)]['step_ms'] / b12['step_ms']:.2f}x; "
           f"bf16 img/s batch 12 {12e3 / b12['step_ms']:.2f}, batch 24 "
           f"{24e3 / b24['step_ms']:.2f}", flush=True)
-    return out[("float32", 12)]["counts"]
+    return out[("float32", 12)], scoring
 
 
 def gan_training_phase(rk, dev) -> dict:
@@ -1382,6 +1487,7 @@ def serve_phase(rk, tk, dev, res: str) -> dict:
     t_phase = time.perf_counter()
     rk.reset_launches()
     tk.reset_launches()
+    gk.reset_launches()
     rng = np.random.default_rng(0)
 
     # 1. the card against the CPU in fp32, same weights and input (the bf16
@@ -1613,9 +1719,15 @@ def serve_phase(rk, tk, dev, res: str) -> dict:
     counts = {**rk.launches, **tk.launches}
     check(all(v == 0 for v in counts.values()),
           f"serve: kernels launched at serve time: {counts}")
-    print(f"serve: phase {time.perf_counter() - t_phase:.1f} s; launches {counts}",
-          flush=True)
-    return counts
+    # GroupNorm's kernels, 32 a forward (the CPU's forwards count ``cpu``;
+    # ``Upscaler.forward`` timed outside ``torch.no_grad`` counts ``grad``)
+    norms = group_norm_counts()
+    check(norms["launches"] > 0 and norms["launches"] % 32 == 0
+          and norms["launches"] == norms["paths"]["vec"] + norms["paths"]["scalar"],
+          f"serve: GroupNorm {norms}, expected the kernels on the card")
+    print(f"serve: phase {time.perf_counter() - t_phase:.1f} s; launches {counts}; "
+          f"group norm {norms}", flush=True)
+    return {**counts, "group_norm": norms}
 
 
 def _tower_params(tk, dev, g, margin: bool):
@@ -2691,9 +2803,11 @@ def main() -> int:
     dev = torch.device("cuda")
     disable_tf32()
     kernels = kernel_phase(rk, dev)
+    group_norm = group_norm_phase(dev)
     small_step_phase(dev)
     gan_small_step_phase(dev)
-    counts = training_phase(rk, dev)
+    pixel, scoring = training_phase(rk, dev)
+    counts = pixel["counts"]
     gan = gan_training_phase(rk, dev)
     det = determinism_phase(rk, dev, gan["pool gan flagship"])
     multihost = multihost_phase(rk, dev, det)
@@ -2747,6 +2861,15 @@ def main() -> int:
         name = rec["name"].rsplit("_", 1)[0]
         rec["launches_by_path"] = {"tower": rec["launches"], "serve": serve[name]}
     line += tower
+    # GroupNorm's launches and routes on each path, read just after it: the
+    # kernels in scoring and serving, torch's in every training step
+    line.append({"name": "group_norm", "route": "cuda",
+                 "source": "srgan_tpu_torch/csrc/group_norm.cu", "replaces": None,
+                 "launches_by_path": {
+                     "pixel fp32": pixel["group_norm"], "scoring": scoring,
+                     **{k: v["group_norm"] for k, v in {**gan, **vmap}.items()},
+                     "serve": serve["group_norm"]},
+                 **group_norm})
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

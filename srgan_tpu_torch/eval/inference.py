@@ -244,7 +244,7 @@ class Upscaler:
                     sr = enhance(sr)
                 sr = sr.clamp(0.0, 1.0)
             with span("serve.fetch"):
-                out = to_host(sr, "Upscaler.upscale").numpy()
+                out = to_host(sr, "Upscaler.upscale", pinned=True).numpy()
         return out[0] if single else out
 
     def upscale_u8(self, image: np.ndarray) -> np.ndarray:
@@ -258,7 +258,7 @@ class Upscaler:
             with span("serve.forward"):
                 out = self._run(x, u8=True)
             with span("serve.fetch"):
-                out = to_host(out, "Upscaler.upscale_u8").numpy()
+                out = to_host(out, "Upscaler.upscale_u8", pinned=True).numpy()
         return out[0] if single else out
 
     def upscale_file(self, in_path: str, out_path: str) -> None:

@@ -47,6 +47,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from srgan_tpu_torch.config import ModelConfig
+from srgan_tpu_torch.ops.cuda import group_norm_kernel
 
 HEADS = ("subpixel", "coarse", "reference")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -80,7 +81,10 @@ class Conv2d(nn.Conv2d):
 class GroupNorm(nn.GroupNorm):
     """flax ``nn.GroupNorm(dtype=compute_dtype)``: statistics, normalise,
     scale and bias in f32, one rounding to the compute dtype at the
-    output."""
+    output. Where no gradient flows through it on the card (serving,
+    scoring), by the kernels of ``ops/cuda/group_norm_kernel.py``; else by
+    torch's ``native_group_norm`` on the f32 cast (the route is
+    ``group_norm_kernel.group_norm``'s)."""
 
     def __init__(self, groups: int, features: int,
                  compute_dtype: torch.dtype = torch.float32):
@@ -88,14 +92,8 @@ class GroupNorm(nn.GroupNorm):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # F.group_norm's own kernel, called directly: F.group_norm asks for
-        # the input's memory format, which torch.func.vmap cannot answer
-        # (the vmap pool executor); the bits are the same
-        x = x.float().contiguous()
-        n, c = x.shape[:2]
-        y = torch.native_group_norm(x, self.weight, self.bias, n, c, x[0, 0].numel(),
-                                    self.num_groups, self.eps)[0]
-        return y.to(self.compute_dtype)
+        return group_norm_kernel.group_norm(x, self.weight, self.bias, self.num_groups,
+                                            self.eps, self.compute_dtype)
 
 
 def _norm(norm: str, groups: int, features: int, compute_dtype) -> nn.Module:
@@ -160,7 +158,10 @@ class RematBlock(torch.autograd.Function):
     block's ``_param_names`` order. The skip add stays outside, so the
     input's two gradients meet in autograd's engine as they do without
     remat (the same bits); the bf16 casts live in the branch and are
-    recomputed with it.
+    recomputed with it. Its forward takes torch's GroupNorm, as the
+    recompute does (``group_norm_kernel.native_route``): the forward runs
+    without a graph, where the norm would otherwise take the hand-written
+    kernels, whose last bf16 bit may differ.
 
     Under ``torch.func.vmap`` (the vmap pool executor, whose members' params
     are batched) the rule hands the unwrapped (N, …) tensors to
@@ -171,7 +172,8 @@ class RematBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(block, x, *params):
-        return _branch(block)(x, *params)
+        with group_norm_kernel.native_route():
+            return _branch(block)(x, *params)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

@@ -42,7 +42,6 @@ of the source (``tests/test_torch_recon_source.py``).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import Tuple
@@ -50,6 +49,8 @@ from typing import Tuple
 import torch
 
 from srgan_tpu_torch.ops import recon_loss
+from srgan_tpu_torch.ops.cuda.build import current_stream as _stream
+from srgan_tpu_torch.ops.cuda.build import on_device as _on_device
 from srgan_tpu_torch.ops.filters import DIFF_KERNEL, depthwise_conv3x3, sobel_edge_map
 from srgan_tpu_torch.ops.recon_loss import normalize_edges
 from srgan_tpu_torch.parallel.mesh import sum_over_ranks, world_size
@@ -143,23 +144,6 @@ def vector_path(*tensors: torch.Tensor) -> bool:
     tensor's data 16-byte aligned. Others take the scalar path."""
     w, c = tensors[0].shape[-2:]
     return (w * c) % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
-
-
-# A wrapper's host cost a call sits beside K1's ~0.03 ms on the card, so
-# the two helpers below take the cheap routes: the raw handle of the
-# current stream, as PyTorch's generated code reads it (a Stream object
-# costs ~5 µs more), and the device guard only where another device is
-# current (~3 µs).
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
-
-
-def _on_device(t: torch.Tensor):
-    if t.device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(t.device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -34,7 +34,8 @@ began (or ``clear_spans()``); ``trace()`` writes them only into its Chrome
 trace, as the args of each ``srgan.*`` event.
 
 ``to_host`` is every device-to-host read of the training loop and the
-``Upscaler``: a ``sync`` span, attr ``site``, around ``Tensor.cpu()``.
+``Upscaler``: a ``sync`` span, attr ``site``, around ``Tensor.cpu()``, or
+with ``pinned=True`` around a copy into page-locked memory.
 
 ``trace`` records host and CUDA activity and writes ``trace.json``
 (Perfetto or ``chrome://tracing``) into ``log_dir`` when the block ends,
@@ -146,10 +147,21 @@ def tags(**attrs):
     return _Tags(attrs)
 
 
-def to_host(t: torch.Tensor, site: str) -> torch.Tensor:
+def to_host(t: torch.Tensor, site: str, pinned: bool = False) -> torch.Tensor:
     """``t`` on the host: a call site's device-to-host read, inside a
-    ``sync`` span whose attr ``site`` names the call site."""
+    ``sync`` span whose attr ``site`` names the call site.
+
+    ``pinned=True``, for large reads from the card: a blocking copy into a
+    page-locked tensor from torch's caching host allocator. ``.cpu()`` would
+    copy through a staging buffer into fresh pageable memory, whose pages
+    fault in on first touch (a 24.9 MB read: 2.2-20.8 ms on an H100 host,
+    against 0.6 ms into page-locked memory). The block goes back to the
+    allocator's cache when the caller drops the tensor and every array on
+    it, so a caller that keeps one result while it asks for the next
+    cycles two blocks."""
     with span("sync", site=site):
+        if pinned and t.is_cuda:
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
         return t.cpu()
 
 

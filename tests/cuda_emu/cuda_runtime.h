@@ -62,6 +62,9 @@ alignas(16) inline unsigned char tower_smem[1 << 20];
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 
+// the card's rsqrtf is within 2 ulp of 1/sqrt; this one rounds twice
+inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+
 // v of lane src(lane) of the warp; every lane of the warp must call it
 template <typename V, typename Src>
 V emu_shfl(V v, Src src) {

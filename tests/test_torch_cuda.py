@@ -11,6 +11,8 @@ sign() kinks of the gradient agree bit for bit between the kernel and the
 plain version; tolerances: losses rel 1e-4, d/d sr 1e-3·max|g|.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -347,3 +349,191 @@ class TestCudaMemberAxis:
         assert torch.equal(card[0], plain[0])
         np.testing.assert_allclose(card[0][:3].numpy(), cpu[0][:3].numpy(), rtol=1e-4)
         assert float((card[2] - cpu[2]).norm()) <= 1e-2 * float(cpu[2].norm())
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got − want| in bf16 ulps at the larger magnitude."""
+    got, want = got.double(), want.double()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -120)
+    return float(((got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+@pytest.mark.cuda
+class TestCudaGroupNorm:
+    """GroupNorm's forward kernels (``csrc/group_norm.cu``) against torch's
+    ``native_group_norm`` on the f32 cast (the route they replace) and the
+    float64 plain version, at the serving shape (a 4K request's LR 540x960,
+    batch 1) and the scoring shape (batch 24 of 128x256), bf16 in and out;
+    and the module's routes on the card."""
+
+    @pytest.mark.parametrize("shape", [(1, 64, 540, 960), (24, 64, 128, 256)],
+                             ids=["serve", "score"])
+    def test_kernel_matches_native(self, cuda_device, shape):
+        from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
+
+        g = torch.Generator(device=cuda_device).manual_seed(0)
+        x = (torch.randn(shape, generator=g, device=cuda_device) * 1.5 + 0.3).bfloat16()
+        w = torch.rand(64, generator=g, device=cuda_device) + 0.5
+        b = torch.rand(64, generator=g, device=cuda_device) - 0.5
+        gk.reset_launches()
+        y = gk.group_norm_cuda(x, w, b, 8, 1e-6)
+        y2 = gk.group_norm_cuda(x, w, b, 8, 1e-6)
+        torch.cuda.synchronize()
+        assert gk.launches == {"group_norm": 2} and gk.paths["vec"] == 2
+        assert torch.equal(y, y2)  # fixed-order sums: the same bits twice
+        # the float64 plain version (on a part of the scoring batch): within
+        # one bf16 ulp of its result rounded once
+        n = 1 if shape[0] == 1 else 2
+        y_p, _, _ = gk.group_norm_plain(x[:n], w, b, 8, 1e-6)
+        assert _bf16_ulps(y[:n], y_p.float().bfloat16()) <= 1
+        # torch's route: its f32 statistics over 4.1 M values a row move
+        # outputs near 0 by several of their own ulps, so the bar is one ulp
+        # at the largest |y|
+        native = gk.native_group_norm(x, w, b, 8, 1e-6, torch.bfloat16)
+        top = float(native.abs().max())
+        assert float((y.double() - native.double()).abs().max()) <= 2.0 ** (math.floor(math.log2(top)) - 7)
+
+    def test_kernel_names_are_the_listed_ones(self, cuda_device):
+        """Every instance the model can launch shows in the profiler under a
+        name of ``PROFILED_NAMES`` (which the CPU test files under the
+        benchmark's ``groupnorm`` group)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
+
+        x = torch.randn(2, 16, 9, 16, device=cuda_device)
+        w, b = torch.ones(16, device=cuda_device), torch.zeros(16, device=cuda_device)
+        odd = torch.randn(2, 16, 7, 5, device=cuda_device)  # the scalar path
+        with profile(activities=[ProfilerActivity.CUDA]):  # starts device tracing
+            gk.group_norm_cuda(x, w, b, 8, 1e-6)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for t in (x, odd):
+                for dt in (torch.float32, torch.bfloat16):
+                    gk.group_norm_cuda(t.to(dt), w, b, 8, 1e-6)
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events() if "group_norm" in e.name}
+        assert names == set(gk.PROFILED_NAMES), sorted(names)
+
+    def test_kernel_wrapper_rejects_bad_input(self, cuda_device):
+        from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
+
+        x = torch.zeros(1, 16, 4, 4, device=cuda_device)
+        w, b = torch.ones(16, device=cuda_device), torch.zeros(16, device=cuda_device)
+        with pytest.raises(TypeError):
+            gk.group_norm_cuda(x.double(), w, b, 8, 1e-6)
+        with pytest.raises(ValueError):
+            gk.group_norm_cuda(x, w, b, 5, 1e-6)
+        with pytest.raises(ValueError):
+            gk.group_norm_cuda(x, w.cpu(), b, 8, 1e-6)
+        with pytest.raises(ValueError):
+            gk.group_norm_cuda(x, w.bfloat16(), b, 8, 1e-6)
+
+    def test_grad_route_keeps_torchs_bits(self, cuda_device):
+        """With a gradient the module runs torch's kernel on the f32 cast, as
+        before the kernels existed, and counts ``grad``; its backward runs."""
+        from srgan_tpu_torch.models.srresnet import GroupNorm
+        from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
+
+        norm = GroupNorm(8, 64, torch.bfloat16).to(cuda_device)
+        x = torch.randn(2, 64, 24, 40, device=cuda_device).bfloat16().requires_grad_()
+        gk.reset_launches()
+        y = norm(x)
+        xf = x.detach().float()
+        want = torch.native_group_norm(xf, norm.weight, norm.bias, 2, 64, 960, 8,
+                                       1e-6)[0].bfloat16()
+        assert torch.equal(y.detach(), want)
+        y.float().sum().backward()
+        assert x.grad is not None and norm.weight.grad is not None
+        assert gk.paths["grad"] == 1 and gk.launches == {"group_norm": 0}
+
+    def test_vmap_route(self, cuda_device):
+        from srgan_tpu_torch.models.srresnet import GroupNorm
+        from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
+
+        norm = GroupNorm(8, 16).to(cuda_device)
+        x = torch.randn(3, 2, 16, 6, 5, device=cuda_device)
+        gk.reset_launches()
+        with torch.no_grad():
+            torch.func.vmap(norm)(x)
+        assert gk.paths["vmap"] >= 1 and gk.launches == {"group_norm": 0}
+
+    def test_4k_request_takes_the_kernels(self, cuda_device):
+        """One ``upscale_u8`` of a 4K frame (LR 540x960) in bf16 at the
+        flagship width: 32 norms, all by the kernels' vector path, none by
+        torch's; the same request twice gives the same bytes."""
+        from srgan_tpu_torch.config import ModelConfig
+        from srgan_tpu_torch.eval.inference import Upscaler
+        from srgan_tpu_torch.models.srresnet import init_generator
+        from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
+
+        model = init_generator(ModelConfig(compute_dtype="bfloat16"), seed=0,
+                               device=cuda_device)
+        up = Upscaler(model, device=cuda_device)
+        img = np.random.default_rng(0).integers(0, 256, (540, 960, 3), dtype=np.uint8)
+        gk.reset_launches()
+        out = up.upscale_u8(img)
+        assert out.shape == (2160, 3840, 3)
+        assert gk.launches == {"group_norm": 32}
+        assert gk.paths == {"vec": 32, "scalar": 0, "grad": 0, "vmap": 0, "remat": 0,
+                            "cpu": 0, "cast": 0}
+        assert np.array_equal(out, up.upscale_u8(img))
+
+    def test_fetch_hands_each_caller_its_own_array(self, cuda_device):
+        """``upscale_u8`` and ``upscale`` fetch into page-locked memory from
+        torch's caching host allocator: a result the caller keeps is not
+        written by the next requests, and it equals a plain ``.cpu()`` of
+        the same forward."""
+        from srgan_tpu_torch.config import ModelConfig
+        from srgan_tpu_torch.eval.inference import Upscaler
+        from srgan_tpu_torch.models.srresnet import init_generator
+
+        model = init_generator(ModelConfig(num_features=16, num_residuals=2,
+                                           compute_dtype="bfloat16"),
+                               seed=0, device=cuda_device)
+        up = Upscaler(model, device=cuda_device)
+        rng = np.random.default_rng(0)
+        imgs = [rng.integers(0, 256, (48, 80, 3), dtype=np.uint8) for _ in range(3)]
+        with torch.no_grad():
+            want = [up._run(up._batch(im)[0], u8=True).cpu().numpy()[0] for im in imgs]
+        kept = [up.upscale_u8(im) for im in imgs]  # each kept while the next runs
+        for _ in range(4):  # blocks dropped and taken again
+            up.upscale_u8(imgs[0])
+        for got, w in zip(kept, want):
+            assert np.array_equal(got, w)
+        assert len({a.__array_interface__["data"][0] for a in kept}) == 3
+        f = up.upscale(imgs[1])
+        assert f.dtype == np.float32 and f.shape == (192, 320, 3)
+        assert np.array_equal(kept[1], want[1])
+
+    def test_remat_step_matches_without_remat(self, cuda_device):
+        """One bf16 pixel step of a remat generator on the card equals the
+        step without remat bit for bit (losses, SR, every updated param):
+        the remat block's forward takes torch's GroupNorm, as its
+        backward's recompute does, and no norm of the step takes the
+        kernels."""
+        from srgan_tpu_torch.config import ModelConfig
+        from srgan_tpu_torch.models.srresnet import init_generator
+        from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
+        from srgan_tpu_torch.training.steps import generator_pixel_step
+        from srgan_tpu_torch.training.train_state import TrainState
+
+        rng = np.random.default_rng(0)
+        hr = torch.from_numpy(rng.random((2, 256, 256, 3), dtype=np.float32)).to(cuda_device)
+        lr_imgs = torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32)).to(cuda_device)
+        out = {}
+        for remat in (True, False):
+            cfg = ModelConfig(num_features=64, num_residuals=4, remat=remat,
+                              compute_dtype="bfloat16")
+            state = TrainState(init_generator(cfg, seed=0, device=cuda_device))
+            gk.reset_launches()
+            state, m = generator_pixel_step(state, hr, lr_imgs, 1e-3, return_sr=True)
+            torch.cuda.synchronize()
+            out[remat] = (m["packed"].cpu(), m["sr"].cpu(),
+                          [p.detach().cpu() for p in state.params], dict(gk.paths),
+                          dict(gk.launches))
+        remat, plain = out[True], out[False]
+        assert remat[3]["remat"] == 8 and plain[3]["remat"] == 0
+        assert remat[4] == plain[4] == {"group_norm": 0}
+        assert torch.equal(remat[0], plain[0]) and torch.equal(remat[1], plain[1])
+        assert all(torch.equal(a, b) for a, b in zip(remat[2], plain[2]))

@@ -115,6 +115,16 @@ def test_off_span_is_one_shared_null_context():
     assert torch.equal(profiling.to_host(x, "test"), x)
 
 
+@pytest.mark.parametrize("pinned", [False, True])
+def test_to_host_is_one_sync_span(tmp_path, pinned):
+    """A read, page-locked or not (a CPU tensor is read by ``.cpu()``
+    either way), is one ``sync`` span named by its site."""
+    x = torch.arange(6.0).reshape(2, 3)
+    out, _, recs = _traced(tmp_path, lambda: profiling.to_host(x, "test", pinned=pinned))
+    assert torch.equal(out, x)
+    assert [(r.name, r.attrs) for r in recs] == [("sync", {"site": "test"})]
+
+
 # ------------------------------------------------------------- span trees
 
 
