@@ -12,7 +12,8 @@ Variants:
 - ``bf16``: the same rounded to bfloat16, the configuration's own
   precision: what rounding alone does to each number (not a control).
 - ``half_batch`` (training): the reference trained on the first half of
-  every batch, the mean taken over it.
+  every batch (of each rank's rows on several cards), the mean taken over
+  it.
 - ``unchanged`` (training): steps that leave every parameter as it was.
 - ``no_mutual`` (the pool): the program with its epoch end's mutual
   learning switched off, through a short run.
@@ -21,9 +22,17 @@ Variants:
   short run.
 - ``altered`` (serving): the program, with one answer's centre patch
   inverted where it is produced.
+- ``skip_average`` (several cards): the program, its last rank stepping
+  on its own gradient, un-averaged (it still joins every all-reduce),
+  through a short run.
+- ``local_totals`` (several cards): the program with each rank's loss
+  over its own rows, K1's and K2's totals not summed over the ranks and
+  the gradient not scaled for the average, through a short run.
 
-Prints the numbers compared with the cell's limits, and the verdict. The
-benchmark's own runs never run this.
+Prints the numbers compared with the cell's limits, and the verdict; a
+variant that runs the program on several cards starts one process a card,
+as the benchmark does (``ranks.py``), and rank 0 prints. The benchmark's
+own runs never run this.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -71,39 +81,79 @@ def bf16(t: torch.Tensor) -> torch.Tensor:
     return _Rounded.apply(t, "bf16")
 
 
+def _skip_average(trainer):
+    """The last rank applies its own gradient: the all-reduce runs on a
+    copy, so the other ranks still meet it."""
+    import torch.distributed as dist
+    from srgan_tpu_torch.training import train_state
+
+    if dist.get_rank() != dist.get_world_size() - 1:
+        return
+    average = train_state.average_grads
+
+    def skipped(grads, group=None):
+        grads = list(grads)
+        average([g.clone() for g in grads], group)
+        return grads
+
+    train_state.average_grads = skipped
+
+
+def _local_totals(trainer):
+    """The loss of this rank's rows alone, as a port that leaves out the
+    exchange has it: K1 and K2 without the process group, so their totals
+    are this rank's and the backward is not scaled by the world size; the
+    ranks' gradients are still averaged."""
+    from srgan_tpu_torch.ops.cuda.recon_loss_kernel import ReconstructionLoss
+    from srgan_tpu_torch.training import steps
+
+    steps.reconstruction_loss = lambda hr, sr, group=None: ReconstructionLoss.apply(
+        hr, sr, None)[:2]
+
+
+PROGRAM_FAULTS = {"skip_average": _skip_average, "local_totals": _local_totals}
+
+
 def train_readings(spec, seed: int, variant: str, device) -> dict:
     """A training cell's numbers with ``variant`` in the program's place,
     over the steps a run compares (``reference.train.enough``)."""
-    from h100bench import inputs
+    from h100bench import arch, inputs
     from h100bench.kinds.train import CHECKED_STEPS, check_steps, first_epoch_batches
+    from h100bench.reference import loss as ref_loss
     from h100bench.reference import model as ref_model
     from h100bench.reference import train as ref_train
 
     config, traffic = spec.config, spec.traffic
     m_cfg, d_cfg = config["model"], config.get("discriminator")
+    gen = arch.load(m_cfg)
     hr_hw, batch = tuple(config["data"]["hr_size"]), config["data"]["batch_size"]
     n_gen = config.get("pool", {}).get("num_generators", 1)
     use_gan = bool(config["train"].get("use_gan"))
+    world = spec.cell["chips"]
     n_train = traffic["train_images"]
     clips = inputs.clips_u8(n_train + traffic["val_images"], hr_hw, inputs.seed_for(seed, 1),
                             device)[:n_train].cpu().numpy()
-    w0 = [inputs.weights(ref_model.generator_param_shapes(m_cfg), inputs.seed_for(seed, 2, i),
-                         device) for i in range(n_gen)]
+    w0 = [inputs.weights(gen.param_shapes(m_cfg), inputs.seed_for(seed, 2, i), device,
+                         gen.param_scale) for i in range(n_gen)]
     d0 = (inputs.weights(ref_model.discriminator_param_shapes(d_cfg), inputs.seed_for(seed, 3),
                          device) if use_gan else None)
-    n_steps = int(config["data"]["split_ratio"] * n_train) // batch
-    epoch = first_epoch_batches(config, clips, seed, device, set(range(n_steps)))
+    # the pool's first GAN updates may come late in the epoch; pixel steps stop at the last compared
+    n_steps = (int(config["data"]["split_ratio"] * n_train) // world // batch if use_gan
+               else CHECKED_STEPS)
+    epoch = first_epoch_batches(config, clips, seed, device, set(range(n_steps)), world)
     quant = {"fp8": fp8, "bf16": bf16}.get(variant)
     if quant is not None:
         fed = [(h, quant(l)) for h, l in epoch.values()]
-    elif variant == "half_batch":
-        fed = [(h[: batch // 2], l[: batch // 2]) for h, l in epoch.values()]
+    elif variant == "half_batch":  # the first half of each rank's rows
+        half = lambda t: torch.cat([r[: batch // 2] for r in t.split(batch)])  # noqa: E731
+        fed = [(half(h), half(l)) for h, l in epoch.values()]
     else:
         fed = list(epoch.values())
     nets0 = list(w0) + ([d0] if use_gan else [])
     members, d, rec = ref_train.run_steps(
         config, [ref_train.trainable(w) for w in w0],
-        ref_train.trainable(d0) if use_gan else None, fed, seed, quant, least=CHECKED_STEPS)
+        ref_train.trainable(d0) if use_gan else None, fed, seed, quant, least=CHECKED_STEPS,
+        shards=world)
     lists = lambda ds: [[v for v in p.values()] for p in ds]  # noqa: E731
     gan = [dict(g, params=list(g["params"].values()), d_params=list(g["d_params"].values()),
                 grad=list(g["grad"].values())) for g in rec.gan]
@@ -119,24 +169,26 @@ def train_readings(spec, seed: int, variant: str, device) -> dict:
     else:
         params = lists(rec.after_least)
         grads = [lists(step) for step in rec.grads[:CHECKED_STEPS]]
+    totals = [ref_loss.edge_totals(h) for h, _ in fed[:CHECKED_STEPS]] if world > 1 else []
     cap = types.SimpleNamespace(
+        totals=totals,
         losses=[torch.tensor(step) for step in rec.losses[:CHECKED_STEPS]],
         lr=[l for _, l in fed[:CHECKED_STEPS]] if variant != "half_batch"
         else [l for _, l in list(epoch.values())[:CHECKED_STEPS]],
         masks=rec.masks, grads=grads, params=params, gan=gan)
     del members, d
     steps = set(range(CHECKED_STEPS)) | {g["step"] for g in gan}
-    return check_steps(config, cap, w0, d0, {k: epoch[k] for k in steps}, seed)
+    return check_steps(config, cap, w0, d0, {k: epoch[k] for k in steps}, seed, world)
 
 
 def serve_readings(spec, seed: int, variant: str, seconds: float, device) -> dict:
     """A serving cell's numbers with ``variant`` in the program's place,
     through a short window at the cell's load."""
-    from h100bench import run
+    from h100bench import arch, run
     from h100bench.kinds.serve import quantize
-    from h100bench.reference import model as ref_model
 
     m_cfg = spec.config["model"]
+    forward = arch.load(m_cfg).forward
 
     def hook(up):
         serve = up.upscale_u8
@@ -146,7 +198,7 @@ def serve_readings(spec, seed: int, variant: str, seconds: float, device) -> dic
             @torch.no_grad()
             def replaced(img):
                 x = torch.from_numpy(img).to(device).float()[None] / 255.0
-                return quantize(ref_model.srresnet(w, x, m_cfg, fp8)[0]).cpu().numpy()
+                return quantize(forward(w, x, m_cfg, fp8)[0]).cpu().numpy()
 
             up.upscale_u8 = replaced
         else:
@@ -160,6 +212,17 @@ def serve_readings(spec, seed: int, variant: str, seconds: float, device) -> dic
 
     args = types.SimpleNamespace(workload=spec.cell["name"], seed=seed, seconds=seconds, trace=0)
     return run.execute(args, device=device, faults=[hook], overrides=spec.overrides)["checks"]
+
+
+def program_fault_readings(spec, seed: int, variant: str, seconds: float, device) -> dict:
+    """A training cell's numbers, judged, from a short run of the program
+    with ``PROGRAM_FAULTS[variant]`` planted (one rank's share on several
+    cards)."""
+    from h100bench import run
+
+    args = types.SimpleNamespace(workload=spec.cell["name"], seed=seed, seconds=seconds, trace=0)
+    return run.execute(args, device=device, faults=[PROGRAM_FAULTS[variant]],
+                       overrides=spec.overrides)["checks"]
 
 
 def no_mutual_readings(spec, seed: int, seconds: float, device) -> dict:
@@ -200,18 +263,32 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, nargs="+", required=True)
     p.add_argument("--variant", required=True,
                    choices=("fp8", "bf16", "half_batch", "unchanged", "altered", "no_mutual",
-                            "no_adversarial"))
+                            "no_adversarial", *PROGRAM_FAULTS))
     p.add_argument("--seconds", type=float, default=5.0)
     a = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
-    from h100bench import compare, run
+    from h100bench import compare, ranks, run
 
     run._cache_env()
     spec = run.load_cell(a.workload)
     spec.overrides = None
+    chips = spec.cell["chips"]
+    if a.variant in PROGRAM_FAULTS and chips > 1 and not ranks.is_rank():
+        worst = 0
+        for seed in a.seed:  # one set of ranks a seed
+            worst = worst or ranks.launch(
+                [str(Path(__file__).resolve()), "--workload", a.workload, "--seed", str(seed),
+                 "--variant", a.variant, "--seconds", str(a.seconds)],
+                chips, time.perf_counter(), run.LAUNCH_TIMEOUT_S)
+        return worst
     device = torch.device("cuda")
     for seed in a.seed:
-        if a.variant in ("no_mutual", "no_adversarial"):
+        if a.variant in PROGRAM_FAULTS:
+            judged = program_fault_readings(spec, seed, a.variant, a.seconds, device)
+            ok = all(v is not None and lim is not None and v <= lim for v, lim in judged.values())
+            if ranks.rank() != 0:
+                continue
+        elif a.variant in ("no_mutual", "no_adversarial"):
             readings = no_mutual_readings if a.variant == "no_mutual" else no_adversarial_readings
             judged = readings(spec, seed, a.seconds, device)
             ok = all(v is not None and lim is not None and v <= lim for v, lim in judged.values())

@@ -14,7 +14,7 @@ step that drops part of its batch shows in the batch's loss.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -60,16 +60,18 @@ def _scale(name: str, shape: tuple) -> Tuple[float, float]:
 
 
 @torch.no_grad()
-def weights(shapes: List[Tuple[str, tuple]], seed: int, device) -> Dict[str, torch.Tensor]:
+def weights(shapes: List[Tuple[str, tuple]], seed: int, device,
+            scale: Callable[[str, tuple], Tuple[float, float]] = _scale) -> Dict[str, torch.Tensor]:
     """Float32 weights for ``shapes``: one normal draw on the device, cut
-    into the parameters and scaled."""
+    into the parameters, each drawn as N(offset, scale²) by ``scale(name,
+    shape)`` (an architecture's ``param_scale``)."""
     g = torch.Generator(device=device).manual_seed(seed)
     total = sum(math.prod(s) for _, s in shapes)
     flat = torch.randn(total, generator=g, device=device)
     out, at = {}, 0
     for name, shape in shapes:
         size = math.prod(shape)
-        off, sc = _scale(name, shape)
+        off, sc = scale(name, shape)
         out[name] = (flat[at:at + size] * sc + off).view(shape)
         at += size
     return out

@@ -22,8 +22,7 @@ import time
 import numpy as np
 import torch
 
-from h100bench import compare, inputs, work
-from h100bench.reference import model as ref_model
+from h100bench import arch, compare, inputs, work
 
 
 def size_cycle(traffic: dict) -> list:
@@ -55,18 +54,28 @@ def quantize(sr: torch.Tensor) -> torch.Tensor:
     return torch.floor(sr.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
 
+def serve_work(m_cfg: dict, sizes) -> work.Work:
+    """The work of serving one request of each LR size in ``sizes``."""
+    gen = arch.load(m_cfg)
+    wk = work.Work(m_cfg["compute_dtype"])
+    for size in set(sizes):
+        wk.add(gen.forward_ops(m_cfg, size), 1, sizes.count(size))
+    return wk
+
+
 def run(ctx) -> dict:
     config, traffic, seed, dev = ctx.config, ctx.traffic, ctx.seed, ctx.device
     from srgan_tpu_torch.eval.inference import Upscaler
-    from srgan_tpu_torch.models.srresnet import SRResNet
     from h100bench.kinds.train import _load, port_config
 
     m_cfg = config["model"]
+    gen = arch.load(m_cfg)
     cuda = dev.type == "cuda"
     t_start = time.perf_counter()
     cfg = port_config(config, seed, "unused")
-    model = SRResNet.from_config(cfg.model).to(dev)
-    w = inputs.weights(ref_model.generator_param_shapes(m_cfg), inputs.seed_for(seed, 2, 0), dev)
+    model = gen.port_model(cfg.model).to(dev)
+    w = inputs.weights(gen.param_shapes(m_cfg), inputs.seed_for(seed, 2, 0), dev,
+                       gen.param_scale)
     _load(model, w)
     up = Upscaler(model, device=dev)
     for hook in ctx.faults:
@@ -120,9 +129,7 @@ def run(ctx) -> dict:
     window_s = t1 - t0
     f = m_cfg["upscale_factor"]
     mpix = sum(h * wd * f * f for h, wd in sizes) / 1e6
-    wk = work.Work(m_cfg["compute_dtype"])
-    for size in set(sizes):
-        wk.add(work.generator_forward(m_cfg, size), 1, sizes.count(size))
+    wk = serve_work(m_cfg, sizes)
     result = {
         "attempted": len(lat), "failed": failed, "peak_bytes": peak, "t_window": t0,
         "e2e": {"serve_mpix_s": mpix / window_s,
@@ -143,10 +150,11 @@ def run(ctx) -> dict:
 def check_answers(m_cfg: dict, w: dict, kept: dict, dev, quant=None) -> dict:
     """The widest and the mean gap in uint8 levels between each kept answer
     and the reference's, over the sample."""
+    forward = arch.load(m_cfg).forward
     worst_max, worst_mean = 0.0, 0.0
     for i, (img, out) in sorted(kept.items()):
         x = torch.from_numpy(img).to(dev).float()[None] / 255.0
-        ref = quantize(ref_model.srresnet(w, x, m_cfg, quant)[0]).cpu().numpy()
+        ref = quantize(forward(w, x, m_cfg, quant)[0]).cpu().numpy()
         g = compare.u8_gaps(out, ref)
         worst_max, worst_mean = max(worst_max, g["max"]), max(worst_mean, g["mean"])
         d = np.abs(out.astype(np.int16) - ref.astype(np.int16))

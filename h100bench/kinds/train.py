@@ -5,9 +5,13 @@ Set-up builds one ``Trainer`` from the configuration's CLI flags, hands it
 the benchmark's weights, and lets ``train`` run its first
 ``warm_epochs`` epochs (every step shape, the epoch end and the
 validation cache warm). The window opens when epoch ``warm_epochs``
-starts and closes when ``train`` returns: a timer sends the process
-SIGTERM after ``--seconds``, and the program's own preemption path stops
-at the next batch boundary and writes its snapshot, which counts.
+starts, or with the traffic's ``window_opens_at_batch`` k before that
+epoch's batch k, and closes when ``train`` returns: a timer sends the
+process SIGTERM after ``--seconds``, and the program's own preemption
+path stops at the next batch boundary and writes its snapshot, which
+counts. A window that opens mid-epoch also ends mid-epoch, away from an
+epoch end, so that where the stop lands does not decide whether the
+window holds one epoch end more.
 
 The run's first steps (in set-up, through the same ``train`` call and
 feed) are recorded: three, and in a pool with a discriminator each
@@ -19,6 +23,15 @@ from the seed would take longer than the window); in a pool the first
 epoch end's mutual learning is checked from the program's state before
 it. ``train_img_s`` counts the batches that ``train_epoch``
 reports for the window's epochs.
+
+On several cards (``ctx.group``) the run is ``cli train --multihost``:
+every rank makes the whole set and the same weights from the seed, and
+trains on its shard. ``train_img_s`` counts the global batch, and
+``peak_mem_gib`` is the fullest card's. Rank 0 gathers every rank's LR
+batches and params after the compared steps, and alone runs the
+reference, a rank's rows at a time. The statistics that K1 and K2 hand
+rank 0's loss in those steps (edge mean and std, the normalised map's sum,
+the element count) are compared with the global batch's.
 """
 
 from __future__ import annotations
@@ -30,27 +43,29 @@ import signal
 import tempfile
 import threading
 import time
-from contextlib import nullcontext
+from contextlib import ExitStack
 
 import numpy as np
 import torch
 
-from h100bench import compare, inputs, work
+from h100bench import arch, compare, inputs, work
 from h100bench.reference import data as ref_data
+from h100bench.reference import loss as L
 from h100bench.reference import model as ref_model
 from h100bench.reference import train as ref_train
 
 CHECKED_STEPS = 3
 
 
-def port_config(config: dict, seed: int, results_dir: str):
+def port_config(config: dict, seed: int, results_dir: str, multihost: bool = False):
     """The port's ``Config`` as ``cli train`` builds it from the
-    configuration's flags, checked against the configuration's numbers."""
+    configuration's flags (with ``--multihost`` over several cards),
+    checked against the configuration's numbers."""
     from srgan_tpu_torch import cli
 
     args = cli.build_parser().parse_args(
-        ["train", *config["train_flags"], "--seed", str(seed),
-         "--results-dir", results_dir, "--progress", "off"])
+        ["train", *config["train_flags"], *(["--multihost"] if multihost else []),
+         "--seed", str(seed), "--results-dir", results_dir, "--progress", "off"])
     cfg = cli.config_from_args(args)
     for section in ("model", "data", "train", "pool", "discriminator"):
         want = config.get(section, {})
@@ -91,6 +106,7 @@ class Capture:
     def __init__(self, least: int, b1: float, gan: bool):
         self.least, self.b1, self.gan_draws = least, b1, gan
         self.losses, self.lr, self.masks, self.grads, self.gan = [], [], [], [], []
+        self.totals = []  # (edge mean, std, Σe, count) of each compared step's loss
         self.params = None
         self.done = False
         self.undo = lambda: None
@@ -145,6 +161,7 @@ class Capture:
         self.losses, self.lr = host(self.losses), host(self.lr)
         self.grads = [[host(g) for g in step] for step in self.grads]
         self.params = [host(ps) for ps in self.params]
+        self.totals = host(self.totals)
         for g in self.gan:
             g.update(params=host(g["params"]), d_params=host(g["d_params"]), lr=g["lr"].cpu(),
                      grad=host(g["grad"]))
@@ -187,6 +204,48 @@ def _wrap_steps(trainer, cap: Capture, n: int) -> None:
     cap.undo = lambda: setattr(trainer, "pool_steps", orig_steps)
 
 
+def _watch_totals(cap: Capture) -> None:
+    """Record the statistics K1 and K2 hand the loss of each of the first
+    ``cap.least`` steps (``recon_loss_kernel``'s stats vector: edge mean,
+    std, Σe, TV mean, count; the TV mean is left out, it is the step's
+    own); chains onto ``cap.undo``."""
+    from srgan_tpu_torch.ops.cuda import recon_loss_kernel
+
+    orig = recon_loss_kernel.loss_sums
+
+    def loss_sums(hr, sr, stats, group=None):
+        out = orig(hr, sr, stats, group)
+        if len(cap.totals) < cap.least:
+            cap.totals.append(stats.detach()[[0, 1, 2, 4]].clone())
+        return out
+
+    recon_loss_kernel.loss_sums = loss_sums
+    undo = cap.undo
+
+    def undo_both():
+        undo()
+        recon_loss_kernel.loss_sums = orig
+
+    cap.undo = undo_both
+
+
+class _OpensAt:
+    """A training pipeline whose epoch ``epoch`` calls ``open`` just before
+    it hands out batch ``k``."""
+
+    def __init__(self, pipeline, epoch: int, k: int, open_):
+        self._pipeline, self._epoch, self._k, self._open = pipeline, epoch, k, open_
+
+    def __getattr__(self, name):
+        return getattr(self._pipeline, name)
+
+    def epoch(self, epoch, gen):
+        for i, pair in enumerate(self._pipeline.epoch(epoch, gen)):
+            if epoch == self._epoch and i == self._k:
+                self._open()
+            yield pair
+
+
 class Window:
     def __init__(self, seconds: float, tracer, device, region):
         self.seconds, self.tracer = seconds, tracer
@@ -221,12 +280,46 @@ class Window:
             self.tracer.stop()
 
 
-def run(ctx) -> dict:
-    config, traffic, seed, dev = ctx.config, ctx.traffic, ctx.seed, ctx.device
+def train_work(config: dict, steps: int, score_batches: int, window_gan: int) -> work.Work:
+    """The work of a rank's window: ``steps`` training steps of its batch,
+    ``score_batches`` scoring forwards, and in a pool with a discriminator
+    its passes, ``window_gan`` GAN updates among them."""
     m_cfg, d_cfg = config["model"], config.get("discriminator")
     hr_hw = tuple(config["data"]["hr_size"])
     batch = config["data"]["batch_size"]
     factor = m_cfg["upscale_factor"]
+    n_gen = config.get("pool", {}).get("num_generators", 1)
+    gen = arch.load(m_cfg)
+    w = work.Work(m_cfg["compute_dtype"])
+    lr_hw = (hr_hw[0] // factor, hr_hw[1] // factor)
+    w.add(gen.train_ops(m_cfg, lr_hw), batch, steps * n_gen)
+    w.add(gen.forward_ops(m_cfg, lr_hw), batch, score_batches)
+    if config["train"].get("use_gan"):
+        # D(hr) and D(sr) of every member and of the D step's input
+        w.add(work.discriminator_passes(d_cfg, hr_hw, ("fwd",)), batch, steps * (n_gen + 2))
+        w.add(work.discriminator_passes(d_cfg, hr_hw, ("dgrad",), False), batch, window_gan)
+        w.add(work.discriminator_passes(d_cfg, hr_hw, ("wgrad", "dgrad")), batch, 2 * steps)
+    return w
+
+
+def _gathered(group, cap) -> float:
+    """Over the ranks: each compared step's LR batch joined in rank order
+    into ``cap.lr``; returns ``ranks_gap``, the largest |gap| between rank
+    0's params after the compared steps and any other rank's."""
+    cap.lr = [torch.cat(group.gather(lr)) for lr in cap.lr]
+    flat = torch.cat([p.reshape(-1) for net in cap.params for p in net])
+    each = group.gather(flat)
+    return max(float((p - each[0]).abs().max()) for p in each[1:])
+
+
+def run(ctx) -> dict:
+    config, traffic, seed, dev = ctx.config, ctx.traffic, ctx.seed, ctx.device
+    group = ctx.group
+    world = 1 if group is None else group.world
+    m_cfg, d_cfg = config["model"], config.get("discriminator")
+    gen = arch.load(m_cfg)
+    hr_hw = tuple(config["data"]["hr_size"])
+    batch = config["data"]["batch_size"]
     n_gen = config.get("pool", {}).get("num_generators", 1)
     use_gan = bool(config["train"].get("use_gan"))
     results = tempfile.mkdtemp(prefix="h100bench-")
@@ -235,7 +328,7 @@ def run(ctx) -> dict:
         from srgan_tpu_torch.data.dataset import ArrayDataset
         from srgan_tpu_torch.training.loop import Trainer
 
-        cfg = port_config(config, seed, results)
+        cfg = port_config(config, seed, results, multihost=group is not None)
         n_train, n_val = traffic["train_images"], traffic["val_images"]
         clips = inputs.clips_u8(n_train + n_val, hr_hw, inputs.seed_for(seed, 1), dev)
         clips_host = clips.cpu().numpy()
@@ -246,8 +339,9 @@ def run(ctx) -> dict:
 
         trainer = Trainer(cfg, device=dev)
         marks.append(("Trainer()", time.perf_counter()))
-        g_shapes = ref_model.generator_param_shapes(m_cfg)
-        w0 = [inputs.weights(g_shapes, inputs.seed_for(seed, 2, i), dev) for i in range(n_gen)]
+        g_shapes = gen.param_shapes(m_cfg)
+        w0 = [inputs.weights(g_shapes, inputs.seed_for(seed, 2, i), dev, gen.param_scale)
+              for i in range(n_gen)]
         for member, w in zip(trainer.pool.members, w0):
             _load(member.state.model, w)
         d0 = None
@@ -261,6 +355,8 @@ def run(ctx) -> dict:
         marks.append(("weights", time.perf_counter()))
         cap = Capture(CHECKED_STEPS, config["train"]["adam_b1"], use_gan)
         _wrap_steps(trainer, cap, n_gen)
+        if group is not None:
+            _watch_totals(cap)
         mutual = {}
         if trainer.spool is not None:
             end_epoch = trainer.spool.end_epoch
@@ -281,21 +377,35 @@ def run(ctx) -> dict:
         tracer = ctx.new_tracer()
         win = Window(ctx.seconds, tracer, dev, ctx.region)
         warm = traffic["warm_epochs"]
+        opens_at = traffic.get("window_opens_at_batch", 0)
         train_epoch, compute_score = trainer.train_epoch, trainer.compute_score
 
         def gan_updates():
             return 0 if trainer.spool is None else int(np.sum(trainer.spool.gan_updates))
 
+        def open_window():
+            win.open()
+            win.gan0 = gan_updates()
+
         def timed_epoch(pipeline, epoch):
-            if epoch == warm and win.t0 is None:
-                win.open()
-                win.gan0 = gan_updates()
+            first = epoch == warm and win.t0 is None
+            regions = ExitStack()
+            if first and opens_at:
+                def open_in_epoch():
+                    open_window()
+                    regions.enter_context(ctx.region("train_epoch"))
+
+                pipeline = _OpensAt(pipeline, epoch, opens_at, open_in_epoch)
+            elif first:
+                open_window()
+            if win.t0 is not None:
+                regions.enter_context(ctx.region("train_epoch"))
             t = time.perf_counter()
-            with ctx.region("train_epoch") if win.t0 is not None else nullcontext():
+            with regions:
                 out = train_epoch(pipeline, epoch)
             if win.t0 is not None:
-                win.epoch_s += time.perf_counter() - t
-                win.steps += out["n_batches"]
+                win.epoch_s += time.perf_counter() - max(t, win.t0)
+                win.steps += out["n_batches"] - (opens_at if first else 0)
             if epoch == 0:
                 cap.close()
             return out
@@ -314,23 +424,16 @@ def run(ctx) -> dict:
         compare.NOTES.append("set-up: " + ", ".join(
             f"{name} {t - marks[i][1]:.3f} s" for i, (name, t) in enumerate(marks[1:])))
         peak = torch.cuda.max_memory_allocated() if win.cuda else 0
+        if group is not None:
+            peak = int(max(group.gather(torch.tensor([peak], dtype=torch.float64))))
         window_s = win.t1 - win.t0
         steps, window_gan = win.steps, gan_updates() - win.gan0
-        score_batches = min(n_val // batch, cfg.train.score_max_batches) * win.scores
-
-        w = work.Work(m_cfg["compute_dtype"])
-        lr_hw = (hr_hw[0] // factor, hr_hw[1] // factor)
-        w.add(work.generator_train(m_cfg, lr_hw), batch, steps * n_gen)
-        w.add(work.generator_forward(m_cfg, lr_hw), batch, score_batches)
-        if use_gan:
-            # D(hr) and D(sr) of every member and of the D step's input
-            w.add(work.discriminator_passes(d_cfg, hr_hw, ("fwd",)), batch, steps * (n_gen + 2))
-            w.add(work.discriminator_passes(d_cfg, hr_hw, ("dgrad",), False), batch, window_gan)
-            w.add(work.discriminator_passes(d_cfg, hr_hw, ("wgrad", "dgrad")), batch, 2 * steps)
+        score_batches = min(n_val // world // batch, cfg.train.score_max_batches) * win.scores
+        w = train_work(config, steps, score_batches, window_gan)
         result = {
             "attempted": steps, "failed": 0, "peak_bytes": peak,
             "t_window": win.t0,
-            "e2e": {"train_img_s": steps * batch / window_s,
+            "e2e": {"train_img_s": steps * batch * world / window_s,
                     "peak_mem_gib": peak / 2**30},
             "run": dict(kind="train", window_s=window_s, steps=steps,
                         train_epoch_s=win.epoch_s, work=w.as_dict(),
@@ -340,22 +443,31 @@ def run(ctx) -> dict:
         }
         del trainer
         torch.cuda.empty_cache()
+        ranks_gap = None if group is None else _gathered(group, cap)
+        if group is not None and group.rank != 0:
+            result["checks"] = {}
+            return result
 
         # the reference, from the same weights, rows and draws
+        t_ref = time.perf_counter()
         steps = set(range(len(cap.losses))) | {g["step"] for g in cap.gan}
-        batches = first_epoch_batches(config, clips_host[:n_train], seed, dev, steps)
-        result["checks"] = check_steps(config, cap, w0, d0, batches, seed)
+        batches = first_epoch_batches(config, clips_host[:n_train], seed, dev, steps, world)
+        result["checks"] = check_steps(config, cap, w0, d0, batches, seed, world)
+        if ranks_gap is not None:
+            result["checks"]["ranks_gap"] = ranks_gap
         if mutual:
             result["checks"]["mutual_gap"] = compare.mutual_gap(
                 mutual, config["pool"]["mutual_alpha"])
+        compare.NOTES.append(f"reference: {time.perf_counter() - t_ref:.3f} s")
         return result
     finally:
         shutil.rmtree(results, ignore_errors=True)
 
 
-def first_epoch_batches(config, clips, seed, device, steps) -> dict:
-    """{k: (HR, LR)} of the first epoch's batches ``steps``, worked out from
-    the clips and the seed (``reference.data``)."""
+def first_epoch_batches(config, clips, seed, device, steps, world: int = 1) -> dict:
+    """{k: (HR, LR)} of the first epoch's global batches ``steps`` over
+    ``world`` ranks, worked out from the clips and the seed
+    (``reference.data``)."""
     batch = config["data"]["batch_size"]
     rows = ref_data.train_rows(len(clips), config["data"]["split_ratio"],
                                config["data"]["split_seed"], seed, 0)
@@ -363,24 +475,26 @@ def first_epoch_batches(config, clips, seed, device, steps) -> dict:
                              config["data"]["noise_std_max"])
     out = {}
     for k in range(max(steps) + 1):
-        pair = degr(torch.from_numpy(clips[rows[k * batch:(k + 1) * batch]]))
+        pair = degr(torch.from_numpy(clips[ref_data.batch_rows(rows, batch, k, world)]))
         if k in steps:
             out[k] = pair
     return out
 
 
-def check_steps(config, cap, w0, d0, batches, seed) -> dict:
+def check_steps(config, cap, w0, d0, batches, seed, world: int = 1) -> dict:
     """The numbers compared: the program's first steps against the
     reference's from the same weights, and each member's first GAN update
     against the reference's from the program's params before it.
-    ``batches``: {step: (HR, LR)}. The program's gradients are its Adam
-    state's (``Capture``); its params are in the order of the port's
-    ``named_parameters``, which ``_load`` held to the same names."""
+    ``batches``: {step: (HR, LR)}, global batches of ``world`` ranks. The
+    program's gradients are its Adam state's (``Capture``); its params are
+    in the order of the port's ``named_parameters``, which ``_load`` held
+    to the same names."""
     n_gen, n_steps = len(w0), len(cap.losses)
     members = [ref_train.trainable(w) for w in w0]
     d = ref_train.trainable(d0) if d0 is not None else None
     members, d, rec = ref_train.run_steps(config, members, d,
-                                          [batches[k] for k in range(n_steps)], seed)
+                                          [batches[k] for k in range(n_steps)], seed,
+                                          shards=world)
     ref_nets = members + ([d] if d is not None else [])
     init_nets = list(w0) + ([d0] if d0 is not None else [])
     names = [list(w.keys()) for w in init_nets]
@@ -410,6 +524,12 @@ def check_steps(config, cap, w0, d0, batches, seed) -> dict:
         "update_gap": compare.worst_leaf(prog_delta, ref_delta, ref_first, "update"),
     }
     compare.NOTES.append(f"losses: program {prog_loss} reference {rec.losses}")
+    if world > 1:
+        # K1/K2's statistics of rank 0's loss against the global batch's
+        gaps = [float(((p.double().to(r.device) - r).abs() / r.abs()).max())
+                for p, r in zip(cap.totals, (L.edge_totals(batches[k][0])
+                                              for k in range(len(cap.totals))))]
+        out["totals_gap"] = max(gaps, default=None)
     if config["train"].get("use_gan"):
         out["d_grad_gap"] = compare.worst_leaf(first[n_gen:], ref_first[n_gen:],
                                                ref_first[n_gen:], "D grad")

@@ -5,14 +5,17 @@ seed alone.
   train set by numpy's ``default_rng(split_seed)``, the first 70 % kept),
   reshuffled every epoch by ``default_rng((seed, epoch))``, dealt out in
   batches in that order (``DistributedSampler(shuffle=True)`` with
-  ``set_epoch``, ``src/train.py:82-103``).
+  ``set_epoch``, ``src/train.py:82-103``). Over P ranks each rank keeps
+  the strided shard ``rows[r::P]``, cut to the shards' common length, and
+  deals it out in batches; global batch k is the ranks' batches k in rank
+  order.
 - LR: the HR clip / 255, an antialiased bilinear downscale by the factor
   (``jax.image.resize``'s triangle kernel widened by the ratio and
   renormalised where it leaves the image), plus gaussian noise whose std is
   U(0, noise_std_max) an image (``src/transformers.py:73-77``). The draws
   come from a ``torch.Generator`` on the batch's device seeded for the
   epoch by ``SeedSequence((seed, epoch))``: per batch the (B, 1, 1, 1)
-  uniforms, then the normals at the LR shape.
+  uniforms, then the normals at the LR shape, B the global batch.
 """
 
 from __future__ import annotations
@@ -29,6 +32,16 @@ def train_rows(n_images: int, split_ratio: float, split_seed: int,
                seed: int, epoch: int) -> np.ndarray:
     kept = np.random.default_rng(split_seed).permutation(n_images)[: int(split_ratio * n_images)]
     return kept[np.random.default_rng((seed, epoch)).permutation(len(kept))]
+
+
+def batch_rows(rows: np.ndarray, batch: int, k: int, world: int = 1) -> np.ndarray:
+    """The rows of global batch ``k`` of an epoch over ``world`` ranks of
+    ``batch`` rows each, in rank order."""
+    if world == 1:
+        return rows[k * batch:(k + 1) * batch]
+    per = len(rows) // world
+    return np.concatenate([rows[r::world][:per][k * batch:(k + 1) * batch]
+                           for r in range(world)])
 
 
 def downscale_matrix(n_in: int, n_out: int) -> torch.Tensor:

@@ -37,12 +37,33 @@ def edge_map(hr: torch.Tensor) -> torch.Tensor:
     return ((e - mean.float()) / std.float() * 0.2 + 1.0).clamp(0.0, 2.0)
 
 
+def edge_totals(hr: torch.Tensor) -> torch.Tensor:
+    """What the loss totals over a batch before it normalises, float64:
+    (mean and std of the raw edge map, the sum of the normalised map, the
+    element count)."""
+    sx = torch.tensor(SOBEL_X).T.tolist()
+    e64 = torch.maximum(_stencil(hr, SOBEL_X).abs(), _stencil(hr, sx).abs()).double()
+    mean = e64.mean()
+    std = torch.sqrt(((e64 - mean) ** 2).sum() / (e64.numel() - 1))
+    return torch.stack([mean, std, edge_map(hr).double().sum(),
+                        torch.tensor(float(hr.numel()), dtype=torch.float64, device=hr.device)])
+
+
 def reconstruction(hr: torch.Tensor, sr: torch.Tensor, edges=None):
     """(edge-weighted L1, TV) of an NHWC pair."""
     e = edge_map(hr) if edges is None else edges
     l1 = ((hr - sr).abs() * e).double().sum() / e.double().sum()
     tv = (_stencil(sr, DIFF).abs() * (1.0 - e)).double().mean()
     return l1.float(), F.relu(tv).float()
+
+
+def reconstruction_sums(hr: torch.Tensor, sr: torch.Tensor, edges: torch.Tensor):
+    """One shard's part of the global batch's loss, float64: (Σ|HR − SR|·e,
+    Σ|D * SR|·(1 − e)), with ``edges`` normalised over the global batch.
+    The loss is the first over Σe and the relu of the second over the
+    global element count, each summed over the shards."""
+    return (((hr - sr).abs() * edges).double().sum(),
+            (_stencil(sr, DIFF).abs() * (1.0 - edges)).double().sum())
 
 
 def generator_adversarial(real: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:

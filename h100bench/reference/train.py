@@ -16,6 +16,14 @@ reach the gate one batch late (batch k's draw sees losses through batch
 k − 2). At an epoch end the members are sorted by running loss, ascending,
 and every member after the first moves toward it:
 ``p ← α·p_first + (1 − α)·p`` (``src/utils.py:113-115``).
+
+Data parallel over P ranks (``shards``, the pixel phase): the loss is the
+global batch's, its edge statistics and sums over all rows, and its
+gradient is worked out one rank's rows at a time and summed, so that no
+pass holds more rows than one rank's; every rank takes the one Adam step
+on that sum.
+
+The generator is the configuration's architecture (``arch/``).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from h100bench import arch
 from h100bench.reference import loss as L
 from h100bench.reference import model as M
 
@@ -106,13 +115,39 @@ def member_loss(cfg: dict, params: Params, hr, lr, edges, d_params=None, real=No
     """(loss, SR) of one generator's update: the reconstruction loss, plus
     the adversarial term against ``d_params`` where that is given (a GAN
     update; ``real`` is D(hr), held fixed)."""
-    sr = M.srresnet(params, lr, cfg["model"], quant)
+    sr = arch.load(cfg["model"]).forward(params, lr, cfg["model"], quant)
     l1, tv = L.reconstruction(hr, sr, edges)
     loss = l1 + tv
     if d_params is not None:
         fake = M.discriminator(d_params, sr, cfg["discriminator"], quant)
         loss = loss + L.generator_adversarial(real, fake)
     return loss, sr
+
+
+def sharded_loss_grads(cfg: dict, params: Params, hr, lr, edges, shards: int,
+                       quant=None) -> tuple:
+    """(loss, gradient) of one generator's pixel update on the global batch
+    (``hr``, ``lr``, ``edges`` over every row), ``shards`` blocks of rows
+    at a time: a pass without a graph for the global sums (the TV term's
+    relu needs its sign), then each block's share of the loss's gradient,
+    summed."""
+    m = cfg["model"]
+    forward = arch.load(m).forward
+    blocks = [slice(s * (len(hr) // shards), (s + 1) * (len(hr) // shards))
+              for s in range(shards)]
+    e_sum, count = edges.double().sum(), edges.numel()
+    with torch.no_grad():
+        parts = [L.reconstruction_sums(hr[b], forward(params, lr[b], m, quant), edges[b])
+                 for b in blocks]
+    l1_sum, tv_sum = (sum(p[i] for p in parts) for i in (0, 1))
+    loss = (l1_sum / e_sum).float() + torch.relu(tv_sum / count).float()
+    tv_on = float(tv_sum > 0)
+    grads = None
+    for b in blocks:
+        l1_b, tv_b = L.reconstruction_sums(hr[b], forward(params, lr[b], m, quant), edges[b])
+        g = _grads((l1_b / e_sum + tv_on * tv_b / count).float(), params)
+        grads = g if grads is None else {k: grads[k] + g[k] for k in g}
+    return loss, grads
 
 
 def gan_grad(cfg: dict, params: Params, d_params: Params, hr, lr, quant=None) -> Params:
@@ -128,17 +163,20 @@ def _clone(params: Params) -> Params:
 
 
 def run_steps(cfg: dict, members: Sequence[Params], d_params, batches, seed: int,
-              quant=None, least=None) -> tuple:
+              quant=None, least=None, shards: int = 1) -> tuple:
     """Train ``members`` (and the discriminator ``d_params`` where the
     configuration has one) on ``batches``, an iterable of (hr, lr) pairs,
     from the first step of the first epoch: all of them, or with ``least``
-    only until ``enough``. Returns (members, d_params, Record), the params
-    updated in place."""
+    only until ``enough``. ``shards``: the ranks that share each global
+    batch (module docstring). Returns (members, d_params, Record), the
+    params updated in place."""
     t_cfg, d_cfg = cfg["train"], cfg.get("discriminator")
     use_gan = bool(t_cfg.get("use_gan"))
     n = len(members)
     if use_gan and n == 1:
         raise NotImplementedError("the fused one-generator GAN step has no reference here")
+    if use_gan and shards > 1:
+        raise NotImplementedError("the GAN phase over several ranks has no reference here")
     opt = [Adam(p, t_cfg["lr_generator"], t_cfg["adam_b1"], t_cfg["adam_b2"]) for p in members]
     d_opt = (Adam(d_params, t_cfg["lr_discriminator"], t_cfg["adam_b1"], t_cfg["adam_b2"])
              if use_gan else None)
@@ -155,16 +193,20 @@ def run_steps(cfg: dict, members: Sequence[Params], d_params, batches, seed: int
         step_losses, grads_all, sr_lead = [], [], None
         for i, p in enumerate(members):
             before = _clone(p) if mask[i] and not seen[i] else None
-            loss, sr = member_loss(cfg, p, hr, lr, edges, d_params if mask[i] else None, real,
-                                   quant)
-            g = _grads(loss, p)
+            if shards > 1:
+                loss, g = sharded_loss_grads(cfg, p, hr, lr, edges, shards, quant)
+                sr = None
+            else:
+                loss, sr = member_loss(cfg, p, hr, lr, edges, d_params if mask[i] else None,
+                                       real, quant)
+                g = _grads(loss, p)
             opt[i].step(g)
             grads_all.append(g)
             step_losses.append(float(loss.detach()))
             if before is not None:
                 rec.gan.append(dict(step=len(rec.masks) - 1, member=i, params=before,
                                     d_params=d_before, lr=lr, grad=g))
-            if i == 0:
+            if i == 0 and use_gan:
                 sr_lead = sr.detach()
         if use_gan:
             d_loss = L.discriminator_adversarial(M.discriminator(d_params, hr, d_cfg, quant),

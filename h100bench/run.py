@@ -13,9 +13,12 @@ per-layer metrics, read from a profiler trace of the window. The numbers
 that decide ``correct`` are printed, each beside its limit, as the last
 lines of standard error and under ``checks`` at the end of the result.
 
+A cell on several cards runs one process a card (``ranks.py``): the
+command starts them, rank 0 prints the result, and every rank is checked.
+
 Exits non-zero without a result where no CUDA card is visible (or fewer
-than the cell asks for), and where the process holds JAX or the JAX
-package once the window has closed.
+than the cell asks for), where the process (any rank) holds JAX or the
+JAX package once the window has closed, and where a rank fails.
 """
 
 from __future__ import annotations
@@ -35,8 +38,11 @@ import types  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+if "H100BENCH_T0" in os.environ:  # a rank (ranks.py): from its launcher's start
+    T_START = float(os.environ["H100BENCH_T0"])
 HERE = ROOT / "h100bench"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "srgan_tpu")
+LAUNCH_TIMEOUT_S = 1180.0  # a checkout's first run builds and compiles
 
 
 def _cache_env() -> None:
@@ -168,13 +174,20 @@ def execute(args, device=None, faults=(), overrides=None) -> dict:
         _merge(getattr(spec, key), val)
     import torch
 
+    chips = spec.cell["chips"]
     if device is None:
-        need = spec.cell["chips"]
-        if not torch.cuda.is_available() or torch.cuda.device_count() < need:
-            print(f"h100bench: the cell needs {need} CUDA card(s); "
-                  f"torch.cuda.is_available() is {torch.cuda.is_available()}", file=sys.stderr)
+        if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+            print(f"h100bench: the cell needs {chips} CUDA card(s); "
+                  f"torch.cuda.is_available() is {torch.cuda.is_available()}, "
+                  f"torch.cuda.device_count() is {torch.cuda.device_count()}", file=sys.stderr)
             raise SystemExit(2)
         device = torch.device("cuda")
+    group = None
+    if chips > 1:
+        from h100bench.ranks import Group
+
+        group = Group(device)
+        device = group.device
     tracer_box = []
 
     def new_tracer():
@@ -188,7 +201,7 @@ def execute(args, device=None, faults=(), overrides=None) -> dict:
 
     ctx = types.SimpleNamespace(config=spec.config, traffic=spec.traffic, seed=args.seed,
                                 seconds=args.seconds, device=device, faults=list(faults),
-                                new_tracer=new_tracer, region=region_cm)
+                                new_tracer=new_tracer, region=region_cm, group=group)
     kind = importlib.import_module(f"h100bench.kinds.{spec.traffic['kind']}")
     res = kind.run(ctx)
     from h100bench import compare
@@ -199,11 +212,16 @@ def execute(args, device=None, faults=(), overrides=None) -> dict:
     out = {"correct": correct, "attempted": res["attempted"], "failed": res["failed"]}
     if device.type == "cuda":
         dev_info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                    "count": spec.cell["chips"], "memory_peak_bytes": int(res["peak_bytes"])}
+                    "count": chips, "memory_peak_bytes": int(res["peak_bytes"])}
     else:
         dev_info = {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": 0}
     if args.trace:
         fields, breakdown = traced(run, res["tracer"])
+        if group is not None:  # busy and window: the mean over the ranks
+            each = group.gather(torch.tensor([fields["busy_s"], fields["window_s"]],
+                                             dtype=torch.float64))
+            fields = dict(zip(("busy_s", "window_s"),
+                              (float(v) for v in torch.stack(each).mean(0))))
         dev_info.update(fields)
         metrics = {}
         for m in spec.per_layer:
@@ -217,11 +235,20 @@ def execute(args, device=None, faults=(), overrides=None) -> dict:
                             for m in spec.e2e},
                    device=dev_info)
     out["checks"] = checks
+    if group is not None:
+        group.close()
     return out
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     args = parse(argv)
+    from h100bench import ranks
+
+    chips = load_cell(args.workload).cell["chips"]
+    if chips > 1 and not ranks.is_rank():
+        return ranks.launch([str(Path(__file__).resolve()), *argv], chips, T_START,
+                            LAUNCH_TIMEOUT_S)
     _cache_env()
     out = execute(args)
     found = forbidden_modules()
@@ -229,8 +256,12 @@ def main(argv=None) -> int:
         print(f"h100bench: the process holds {', '.join(found)} after the window",
               file=sys.stderr)
         return 3
+    if ranks.rank() != 0:
+        return 0
     from h100bench import compare
 
+    if ranks.is_rank():
+        compare.NOTES.append(f"host memory: rank 0's peak {ranks.host_peak_gib():.2f} GiB")
     for note in compare.NOTES:
         print(f"note {note}", file=sys.stderr)
     for name, (val, lim) in out["checks"].items():

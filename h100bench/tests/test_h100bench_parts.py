@@ -7,6 +7,7 @@ no-JAX check and the refusal to run without a card.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -20,12 +21,14 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from h100bench import groups, inputs, run, work
-from h100bench.kinds import serve
+from h100bench import arch, groups, inputs, run, work
+from h100bench.kinds import serve, train
 from h100bench.reference import model as ref_model
 from h100bench.reference import train as ref_train
+from h100bench.tests import small
 
 ROOT = Path(__file__).resolve().parents[2]
+PARENT = json.loads((Path(__file__).parent / "parent_values.json").read_text())
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -79,10 +82,10 @@ def test_discriminator_flops_match_counter(kinds, first):
 def test_conv_min_time_takes_the_larger_bound():
     c = work.Conv(64, 64, 3, 128, 256, 128, 256)
     w = work.Work("bfloat16")
-    w.add([(c, "fwd")], 24)
+    w.add([c], 24)
     flops_s = work.conv_flops(c, 24) / work.PEAK_FLOPS["bfloat16"]
     bytes_s = work.conv_bytes(c, 24, 2) / work.PEAK_BYTES_S
-    assert w.conv_min_s == pytest.approx(max(flops_s, bytes_s))
+    assert w.as_dict()["conv_min_s"] == pytest.approx(max(flops_s, bytes_s))
     assert work.recon_loss_bytes(12, 512, 1024, 3)["K3"] / work.PEAK_BYTES_S * 1e3 == \
         pytest.approx(0.0676, abs=1e-4)  # PERF.md's K3 bound at (12, 512, 1024, 3)
 
@@ -171,8 +174,9 @@ def test_harness_imports_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
-def test_run_without_a_card_fails_and_prints_no_result():
-    out = subprocess.run([sys.executable, "h100bench/run.py", "--workload", "sr4-train-pixel",
+@pytest.mark.parametrize("cell", ["sr4-train-pixel", "sr4-train-pixel-ddp4"])
+def test_run_without_a_card_fails_and_prints_no_result(cell):
+    out = subprocess.run([sys.executable, "h100bench/run.py", "--workload", cell,
                           "--seed", "5", "--seconds", "1", "--trace", "0"],
                          cwd=ROOT, capture_output=True, text=True, timeout=120,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
@@ -198,3 +202,74 @@ def test_clips_same_cells_every_seed():
 ])
 def test_enough_steps_compared(masks, gan, want):
     assert ref_train.enough([np.asarray(m, np.float32) for m in masks], 3, gan) is want
+
+
+def _sha256(w) -> str:
+    h = hashlib.sha256()
+    for k, v in w.items():
+        h.update(k.encode())
+        h.update(v.contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("key", sorted(PARENT))
+def test_seam_gives_the_parents_numbers(key):
+    """Through ``arch.load``, each cell's parameter shapes, weights and work
+    equal what the harness gave before the seam (``parent_values.json``,
+    recorded from the parent commit): at the tests' small sizes and at the
+    cells' own."""
+    cell, size = key.split("/")
+    spec = run.load_cell(cell)
+    if size == "small":
+        ov = small.overrides(cell)
+        run._merge(spec.config, ov["config"])
+        run._merge(spec.traffic, ov["traffic"])
+    config, want = spec.config, PARENT[key]
+    m = config["model"]
+    gen = arch.load(m)
+    shapes = gen.param_shapes(m)
+    assert [[k, list(s)] for k, s in shapes] == want["param_shapes"]
+    w = inputs.weights(shapes, inputs.seed_for(11, 2, 0), "cpu", gen.param_scale)
+    assert _sha256(w) == want["weights_sha256"]
+    if "d_weights_sha256" in want:
+        d = inputs.weights(ref_model.discriminator_param_shapes(config["discriminator"]),
+                           inputs.seed_for(11, 3), "cpu")
+        assert _sha256(d) == want["d_weights_sha256"]
+    if spec.traffic["kind"] == "train":
+        got = train.train_work(config, 7, 2, 3).as_dict()
+    else:
+        sizes = [(16, 32)] * 5 + [(24, 40)] * 3 + [(32, 64)] * 2 if size == "small" \
+            else [(540, 960)] * 9
+        got = serve.serve_work(m, sizes).as_dict()
+    assert got == want["work"]  # to the bit
+
+
+def test_unknown_arch_raises():
+    with pytest.raises(ValueError, match="no architecture file .*swinir_m.py"):
+        arch.load({"arch": "swinir_m"})
+    with pytest.raises(ValueError, match="no architecture file"):
+        arch.load({"arch": "../run"})
+
+
+def test_work_keeps_op_classes_apart(monkeypatch):
+    monkeypatch.setattr(arch, "DIR", Path(__file__).parent)
+    planted = arch.load({"arch": "planted_arch"})
+    c = work.Conv(64, 64, 3, 128, 256, 128, 256)
+    mm = planted.Matmul(128 * 256, 3, 48)
+    alone = work.Work("bfloat16")
+    alone.add([c], 24, 3)
+    both = work.Work("bfloat16")
+    both.add([c, mm], 24, 3)
+    assert both.as_dict()["conv_min_s"] == alone.as_dict()["conv_min_s"]
+    assert both.flops == alone.flops + 3 * mm.flops(24)
+    assert both.as_dict()["matmul_min_s"] == pytest.approx(
+        3 * max(mm.flops(24) / work.PEAK_FLOPS["bfloat16"], mm.bytes(24, 2) / work.PEAK_BYTES_S))
+    assert list(both.as_dict()) == ["flops", "conv_min_s", "matmul_min_s"]
+
+
+def test_four_card_cells_within_the_share():
+    four = [w for w in BENCH["workloads"] if w["chips"] == 4]
+    assert all(w["chips"] in (1, 4) for w in BENCH["workloads"])
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4)
+    for w in BENCH["workloads"]:
+        assert 1 <= len(w["why"]) <= 200 and "\n" not in w["why"]

@@ -9,16 +9,21 @@ cells' own. ``cuda``-marked tests run the same on the card.
 from __future__ import annotations
 
 import json
+import tempfile
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from h100bench import control, run
+from h100bench import arch, control, ranks, run
 from h100bench.tests import small
 
 CPU = torch.device("cpu")
 CELLS = ("sr4-train-pixel", "sr4pool3-train-gan", "sr4-serve-photos")
+DDP = "sr4-train-pixel-ddp4"
+HERE = Path(__file__).resolve().parent
 
 
 def _run(cell, faults=(), seed=11, device=CPU):
@@ -150,8 +155,9 @@ def test_altered_answer_is_not_correct():
     assert not out["correct"], out["checks"]
 
 
-@pytest.mark.parametrize("cell", CELLS[:2])
-@pytest.mark.parametrize("variant", ["fp8", "half_batch", "unchanged"])
+@pytest.mark.parametrize("cell,variant", [
+    *((c, v) for v in ("fp8", "half_batch", "unchanged") for c in CELLS[:2]), (DDP, "fp8"),
+    (DDP, "half_batch")])
 def test_training_controls_are_not_correct(cell, variant):
     spec = _spec(cell)
     checks = control.train_readings(spec, 5, variant, CPU)
@@ -174,6 +180,102 @@ def test_control_rounds_to_float8():
     assert q.abs().max() == pytest.approx(3.0)
     assert 0 < float((q - x).abs().max()) <= 3.0 * 2.0 ** -4
     assert len(np.unique(q.numpy())) < 256
+
+
+def _left(argv: list) -> list:
+    """The processes whose command line holds ``argv``."""
+    want, found = "\0".join(argv), []
+    for proc in Path("/proc").iterdir():
+        try:
+            if proc.name.isdigit() and want in (proc / "cmdline").read_text():
+                found.append(proc.name)
+        except OSError:  # ended while read
+            pass
+    return found
+
+
+def _four_ranks(seed, fault=None, trace=0):
+    argv = [str(HERE / "rank_worker.py"), DDP, str(seed), str(trace), *([fault] if fault else [])]
+    with tempfile.TemporaryFile("w+") as out, tempfile.TemporaryFile("w+") as err:
+        rc = ranks.launch(argv, 4, time.perf_counter(), 80.0, stdout=out, stderr=err)
+        out.seek(0)
+        err.seek(0)
+        assert rc == 0, err.read()[-4000:]
+        assert _left(argv) == [], "a rank outlived the launcher"
+        return json.loads(out.read().strip().splitlines()[-1])
+
+
+def test_four_ranks_match_the_sharded_reference():
+    """``cli train --multihost`` on 4 gloo ranks against the reference that
+    follows the global batch a rank's rows at a time: every rank ends the
+    compared steps with the same params, and rank 0's loss used the global
+    batch's statistics."""
+    out = _four_ranks(2**31 + 3)
+    assert out["correct"], out["checks"]
+    assert out["checks"]["ranks_gap"] == [0.0, 0]
+    assert out["checks"]["totals_gap"][0] < 1e-6
+    assert out["metrics"]["train_img_s"]["value"] > 0
+
+
+def test_four_ranks_traced_read_the_loop():
+    """A traced run on 4 ranks: the loop's readers find rank 0's spans."""
+    out = _four_ranks(2**31 + 5, trace=1)
+    assert out["correct"], out["checks"]
+    metrics = out["metrics"]
+    # a drain a step; a window that opens mid-epoch also holds the lagged
+    # drain of the batch before it (one more in the few steps here)
+    assert 1.0 <= metrics["step.host_syncs"]["value"] <= 1.25
+    assert metrics["loop.snapshot_share"]["value"] > 0.0
+    ends = metrics["loop.score_share"]["value"] + metrics["loop.snapshot_share"]["value"]
+    assert ends <= metrics["loop.epoch_end_share"]["value"]
+    assert metrics["mfu.train"]["value"] > 0.0
+
+
+@pytest.mark.parametrize("fault,check", [("skip_average", "ranks_gap"),
+                                         ("local_totals", "totals_gap")])
+def test_broken_ranks_are_not_correct(fault, check):
+    out = _four_ranks(11, fault)
+    assert not out["correct"], out["checks"]
+    val, lim = out["checks"][check]
+    assert val > lim
+
+
+@pytest.fixture
+def planted(monkeypatch):
+    """The test-only architecture (``planted_arch.py``), loaded through
+    ``arch.load``; the port's ``Trainer`` builds it in place of SRResNet."""
+    from srgan_tpu_torch.training import loop
+
+    monkeypatch.setattr(arch, "DIR", HERE)
+    mod = arch.load({"arch": "planted_arch"})
+    mod.CALLS.clear()
+    monkeypatch.setattr(loop, "init_generator",
+                        lambda cfg, seed=0, device=None: mod.port_model(cfg).to(device))
+    yield mod
+    mod.CALLS.clear()
+
+
+def _planted_run(cell, out_scale=0.25):
+    ov = small.overrides(cell)
+    ov["config"]["model"].update(arch="planted_arch", planted_out_scale=out_scale)
+    return run.execute(small.args(cell, seed=2**31 + 7, seconds=0.5),
+                       device=CPU, overrides=ov)
+
+
+@pytest.mark.parametrize("cell,calls", [
+    ("sr4-train-pixel", {"param_shapes", "param_scale", "forward", "train_ops", "forward_ops"}),
+    ("sr4-serve-photos", {"port_model", "param_shapes", "param_scale", "forward", "forward_ops"}),
+])
+def test_planted_architecture_runs_through_the_kinds(planted, cell, calls):
+    out = _planted_run(cell)
+    assert out["correct"], out["checks"]
+    assert calls <= set(planted.CALLS), planted.CALLS
+
+
+@pytest.mark.parametrize("cell", ["sr4-train-pixel", "sr4-serve-photos"])
+def test_planted_reference_that_differs_is_not_correct(planted, cell):
+    out = _planted_run(cell, out_scale=0.5)
+    assert not out["correct"], out["checks"]
 
 
 @pytest.fixture

@@ -9,6 +9,11 @@ is max(FLOPs / peak FLOP/s, bytes / peak bytes/s). A training step's
 generator pass is the forward, every wgrad, and every dgrad but the
 stem's (the input needs no gradient).
 
+Work items: a conv pass here, and whatever an architecture's file
+(``arch/<name>.py``) defines. An item has ``op``, the class it is timed
+under (``"conv"``), ``flops(batch)`` and ``bytes(batch, width)``; ``Work``
+sums the FLOPs of every item and keeps each class's least time apart.
+
 The loss kernels K1-K3 (``ops/cuda/recon_loss_kernel.py``) stream f32
 NHWC images: K1 reads HR, K2 reads HR and SR, K3 reads both and writes
 dSR, each byte once.
@@ -35,6 +40,14 @@ class Conv:
     wout: int
     hin: int
     win: int
+
+    op = "conv"
+
+    def flops(self, batch: int) -> float:
+        return conv_flops(self, batch)
+
+    def bytes(self, batch: int, width: int) -> float:
+        return conv_bytes(self, batch, width)
 
 
 def _out(n: int, k: int, s: int, p: int) -> int:
@@ -79,38 +92,42 @@ def conv_bytes(c: Conv, batch: int, width: int) -> float:
 
 
 def passes(convs: List[Conv], kinds: Tuple[str, ...], skip_first_dgrad=True):
-    """(conv, kind) for each pass of ``kinds`` over ``convs``."""
+    """The conv of each pass of ``kinds`` over ``convs`` (every pass of a
+    conv costs the same)."""
     for i, c in enumerate(convs):
         for kind in kinds:
             if kind == "dgrad" and i == 0 and skip_first_dgrad:
                 continue
-            yield c, kind
+            yield c
 
 
 class Work:
-    """Analytic conv FLOPs and the least conv time of a run, summed."""
+    """Analytic FLOPs of a run's work items, summed, and the least time of
+    each op class (``min_s``)."""
 
     def __init__(self, dtype: str):
         self.dtype = dtype
         self.flops = 0.0
-        self.conv_min_s = 0.0
+        self.min_s: Dict[str, float] = {"conv": 0.0}
 
-    def add(self, items: Iterable[Tuple[Conv, str]], batch: int, times: float = 1.0):
+    def add(self, items: Iterable, batch: int, times: float = 1.0):
         peak, width = PEAK_FLOPS[self.dtype], DTYPE_BYTES[self.dtype]
-        for c, _ in items:
-            f = conv_flops(c, batch)
+        for it in items:
+            f = it.flops(batch)
             self.flops += f * times
-            self.conv_min_s += times * max(f / peak, conv_bytes(c, batch, width) / PEAK_BYTES_S)
+            self.min_s[it.op] = self.min_s.get(it.op, 0.0) + times * max(
+                f / peak, it.bytes(batch, width) / PEAK_BYTES_S)
 
     def as_dict(self) -> Dict[str, float]:
-        return {"flops": self.flops, "conv_min_s": self.conv_min_s}
+        """``flops``, then ``<op>_min_s`` of each op class, ``conv_min_s`` first."""
+        return {"flops": self.flops, **{f"{op}_min_s": s for op, s in self.min_s.items()}}
 
 
-def generator_train(m: dict, lr_hw) -> List[Tuple[Conv, str]]:
+def generator_train(m: dict, lr_hw) -> List[Conv]:
     return list(passes(srresnet_convs(m, *lr_hw), ("fwd", "wgrad", "dgrad")))
 
 
-def generator_forward(m: dict, lr_hw) -> List[Tuple[Conv, str]]:
+def generator_forward(m: dict, lr_hw) -> List[Conv]:
     return list(passes(srresnet_convs(m, *lr_hw), ("fwd",)))
 
 
