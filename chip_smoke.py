@@ -172,6 +172,13 @@ Phases, each of which must pass (any failure exits non-zero):
      ``fine_trunk`` (outputs and gradients) in fp32 and bf16, ms/step of
      each in bf16 and the device time of one step of each by group.
 
+  19. SwinIR's windowed attention (``csrc/window_attention.cu``) at
+     SwinIR-M's training shape, shifted and plain, bf16 and f32: against the
+     op's plain route in float64 on the card, two calls bit for bit (dBias
+     too), device ms beside the byte bound, the plain route's ms, and which
+     of torch's ``scaled_dot_product_attention`` backends takes the shape.
+     ``python3 chip_smoke.py --phase window_attention`` runs it alone.
+
 It prints a ``{"kernels": [...]}`` line (K2's and K3's records carry their
 member-axis launch under ``"pooled"``, and the vmap runs' launches in
 ``launches_by_path``) and, last, the ``{"ok": true, ...}`` line. It exits non-zero without a result where CUDA is unavailable or the
@@ -189,6 +196,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -551,6 +559,143 @@ def group_norm_phase(dev) -> dict:
         print(f"group norm {tag} {shape}: " + json.dumps(rec), flush=True)
         del x, xf
     return out
+
+
+WINDOW_ATTN_GRID = (32, 64, 64)  # SwinIR-M x4's training step: LR 64x64, batch 32
+WINDOW_ATTN_HEADS, WINDOW_ATTN_DIM, WINDOW_ATTN_WINDOW = 6, 30, 8
+
+
+def window_attention_phase(dev) -> dict:
+    """SwinIR's windowed attention (``csrc/window_attention.cu``) at
+    SwinIR-M's training shape (``WINDOW_ATTN_GRID``: tokens (32, 4096), 6
+    heads of 30, window 8), shifted (4) and plain, bf16 and f32: forward,
+    dqkv and dbias against the op's plain route in float64 on the card
+    (f32 2e-5 of max|y|; bf16: out one bf16 ulp at max|y|, dqkv 1e-2, dbias
+    2e-3 of max, as ``tests/test_torch_window_attn_source.py`` holds them),
+    two calls bit for bit, dbias included; the kernels' device ms by the
+    profiler and the wrappers' by events, beside the bound (q, k, v, O; and
+    dO, dq, dk, dv backward, at the input's width, over HBM's bandwidth),
+    the plain route's ms in bf16, and which of torch's
+    ``scaled_dot_product_attention`` backends takes the shape (each
+    refusal with torch's reasons) (the math
+    path's ms as ``library_ms``; the port never calls it)."""
+    from srgan_tpu_torch.ops import window_attention as wa
+    from srgan_tpu_torch.ops.cuda import window_attention_kernel as wk
+    from srgan_tpu_torch.ops.cuda.build import ptxas_report
+
+    for line in ptxas_report("window_attention").splitlines():
+        if "entry function" in line or "registers" in line or "spill" in line:
+            print(f"ptxas window_attention: {line.strip()}")
+    grid, heads, d, ws = WINDOW_ATTN_GRID, WINDOW_ATTN_HEADS, WINDOW_ATTN_DIM, WINDOW_ATTN_WINDOW
+    b, h, w = grid
+    n, c = ws * ws, heads * d
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shift in (ws // 2, 0):
+            tag = f"{str(dtype).split('.')[-1]} shift {shift}"
+            g = torch.Generator(device=dev).manual_seed(0)
+            qkv = torch.randn((b, h * w, 3 * c), generator=g, device=dev).to(dtype)
+            bias = torch.randn((heads, n, n), generator=g, device=dev) * 0.5
+            dout = torch.randn((b, h * w, c), generator=g, device=dev).to(dtype)
+            wk.reset_launches()
+            runs = []
+            for _ in range(2):
+                o, lse = wk.window_attention_cuda(qkv, bias, heads, ws, shift, grid)
+                runs.append((o, lse, *wk.window_attention_backward_cuda(
+                    qkv, bias, o, lse, dout, heads, ws, shift, grid)))
+            torch.cuda.synchronize()
+            check(wk.launches == {"forward": 2, "backward": 2}, f"window attn {tag}: {wk.launches}")
+            check(all(torch.equal(a, b2) for a, b2 in zip(*runs)),
+                  f"window attn {tag}: two calls differ")
+            o, _, dqkv, dbias = runs[0]
+            del runs
+            q64 = qkv.double().requires_grad_()
+            b64 = bias.double().requires_grad_()
+            o64 = wa.window_attention_plain(q64, b64, heads, ws, shift, grid)
+            dq64, db64 = torch.autograd.grad(o64, [q64, b64], dout.double())
+            o64 = o64.detach()
+            err = lambda got, want: float((got.double() - want).abs().max() / want.abs().max())
+            errs = {"out": err(o, o64), "dqkv": err(dqkv, dq64), "dbias": err(dbias, db64)}
+            bars = ({"out": 2.0 ** -7, "dqkv": 1e-2, "dbias": 2e-3} if dtype == torch.bfloat16
+                    else {"out": 2e-5, "dqkv": 2e-5, "dbias": 2e-5})
+            check(all(errs[k] <= bars[k] for k in bars), f"window attn {tag}: {errs} > {bars}")
+            del q64, b64, o64, dq64, db64, dqkv, dbias
+            fwd = lambda: wk.window_attention_cuda(qkv, bias, heads, ws, shift, grid)
+            o, lse = fwd()
+            bwd = lambda: wk.window_attention_backward_cuda(qkv, bias, o, lse, dout, heads, ws,
+                                                            shift, grid)
+            with profile(activities=[ProfilerActivity.CUDA]):
+                fwd(), bwd()
+                torch.cuda.synchronize()
+            reps = 5
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fwd()
+                    bwd()
+                torch.cuda.synchronize()
+            by_kernel: dict = {}
+            for e in _device_events(prof):
+                for k in wk.KERNELS:
+                    if k in e.name:
+                        ms = e.time_range.elapsed_us() / reps / 1e3
+                        by_kernel[k] = by_kernel.get(k, 0.0) + ms
+            check(set(by_kernel) == set(wk.KERNELS), f"window attn {tag}: profiler saw {by_kernel}")
+            width = qkv.element_size()
+            rec = {
+                "ms": statistics.median(time_ms(fwd, windows=3, reps=5)),
+                "bwd_ms": statistics.median(time_ms(bwd, windows=3, reps=5)),
+                "kernel_device_ms": by_kernel,
+                "bound_ms": 4 * b * h * w * c * width / HBM_BYTES_PER_S * 1e3,
+                "bwd_bound_ms": 8 * b * h * w * c * width / HBM_BYTES_PER_S * 1e3,
+                "errors": errs,
+                "profiled_names": sorted({e.name for e in _device_events(prof)
+                                          if "window_attn_" in e.name}),
+            }
+            rec["bound_share"] = rec["bound_ms"] / by_kernel["window_attn_fwd_kernel"]
+            rec["bwd_bound_share"] = rec["bwd_bound_ms"] / (
+                by_kernel["window_attn_bwd_kernel"] + by_kernel["window_attn_dbias_kernel"])
+            if dtype == torch.bfloat16:
+                plain = lambda: wa.window_attention_plain(qkv, bias, heads, ws, shift, grid)
+                rec["plain_ms"] = statistics.median(time_ms(plain, windows=3, reps=3))
+                rec.update(sdpa_probe(qkv, bias, heads, ws, shift, grid))
+            out[tag] = rec
+            print(f"window attn {tag}: " + json.dumps(rec), flush=True)
+            del qkv, dout, o, lse
+    return out
+
+
+def sdpa_probe(qkv, bias, heads, ws, shift, grid) -> dict:
+    """Which backend of torch's ``scaled_dot_product_attention`` takes the
+    windows (head dim 30, an additive bias and mask a head and window), and
+    the ms of the one that does, on the already partitioned windows."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from srgan_tpu_torch.ops import window_attention as wa
+
+    b, h, w = grid
+    n, c = ws * ws, qkv.shape[-1] // 3
+    x = qkv.view(b, h // ws, ws, w // ws, ws, 3 * c).transpose(2, 3)
+    q, k, v = x.reshape(-1, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+    mask = bias[None].expand(q.shape[0], -1, -1, -1).clone()
+    if shift:
+        m = wa.shift_mask(h, w, ws, shift).to(qkv.device)
+        mask = (mask.view(b, -1, heads, n, n) + m[None, :, None]).view(-1, heads, n, n)
+    mask = mask.to(qkv.dtype)
+    taken = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+        with warnings.catch_warnings(record=True) as said:
+            warnings.simplefilter("always")
+            try:
+                with sdpa_kernel(getattr(SDPBackend, name)):
+                    torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+                torch.cuda.synchronize()
+                taken[name] = True
+            except RuntimeError as e:
+                why = [str(m.message).splitlines()[0][:160] for m in said]
+                taken[name] = [str(e).splitlines()[0][:80], *why]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return {"sdpa_backends": taken, "library_ms": statistics.median(time_ms(sdpa, windows=3,
+                                                                            reps=3))}
 
 
 def group_norm_counts() -> dict:
@@ -2779,6 +2924,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--phase", "window_attention"]:
+        from srgan_tpu_torch.utils.platform import disable_tf32, make_deterministic
+
+        disable_tf32()
+        make_deterministic()
+        rec = window_attention_phase(torch.device("cuda"))
+        print(json.dumps({"kernels": [{"name": "window_attention", "route": "cuda",
+                                       "source": "srgan_tpu_torch/csrc/window_attention.cu",
+                                       "replaces": None, **rec}]}))
+        return 0
     from srgan_tpu_torch.ops.cuda import recon_loss_kernel as rk
     from srgan_tpu_torch.ops.cuda import residual_tower_kernel as tk
     from srgan_tpu_torch.ops.cuda.build import SOURCES, build, ptxas_report
@@ -2825,6 +2980,7 @@ def main() -> int:
         perceptual = perceptual_training_phase(rk, dev, enc_path)
         tower = tower_phase(dev)
         serve = serve_phase(rk, tk, dev, res)
+    window_attn = window_attention_phase(dev)
     # K1-K3's launches on each path this script drove, each read just after
     # its run: 3 steps of the flagship (fp32; its counts are "launches"),
     # of the pool of 3 and of the one-generator GAN run, 2 steps of each
@@ -2870,6 +3026,9 @@ def main() -> int:
                      **{k: v["group_norm"] for k, v in {**gan, **vmap}.items()},
                      "serve": serve["group_norm"]},
                  **group_norm})
+    line.append({"name": "window_attention", "route": "cuda",
+                 "source": "srgan_tpu_torch/csrc/window_attention.cu", "replaces": None,
+                 **window_attn})
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -21,6 +21,10 @@ process group ``torchrun`` describes (``MASTER_ADDR``, ``MASTER_PORT``,
 ``--pool-exec vmap`` runs a pool's members in one vmapped region
 (``training/stacked_pool.py``) instead of the member loop, with
 ``--remat`` recomputing each residual block in the backward.
+``--arch swinir`` (``train``, and ``upscale`` without a checkpoint, whose
+sidecar names its own) builds SwinIR with ``--embed-dim``, ``--depths``,
+``--heads``, ``--window`` and ``--mlp-ratio``; it refuses ``--remat`` and
+``--pool-exec vmap``, SRResNet's.
 """
 
 from __future__ import annotations
@@ -29,8 +33,41 @@ import argparse
 import sys
 
 
+def _int_list(text: str) -> tuple:
+    """``6,6,6`` → (6, 6, 6)."""
+    try:
+        return tuple(int(v) for v in text.split(","))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected integers joined by commas, got {text!r}") from None
+
+
+def _add_arch(p, default):
+    """The generator's architecture and SwinIR's widths (``ModelConfig``'s
+    defaults: SwinIR-M's published ones)."""
+    p.add_argument("--arch", choices=("srresnet", "swinir"), default=default,
+                   help="generator architecture: srresnet (the reference's) or swinir "
+                        "(SwinIR, arXiv:2108.10257; --num-features is then its "
+                        "upsampler's width)")
+    p.add_argument("--embed-dim", type=int, default=180, help="SwinIR token width")
+    p.add_argument("--depths", type=_int_list, default=(6, 6, 6, 6, 6, 6),
+                   help="SwinIR Swin layers per residual group, e.g. 6,6,6,6,6,6")
+    p.add_argument("--heads", type=_int_list, default=(6, 6, 6, 6, 6, 6),
+                   help="SwinIR attention heads per residual group")
+    p.add_argument("--window", type=int, default=8,
+                   help="SwinIR attention window side (odd layers shift by half of it)")
+    p.add_argument("--mlp-ratio", type=float, default=2.0,
+                   help="SwinIR MLP hidden width over the token width")
+
+
+def _arch_fields(args) -> dict:
+    return dict(generator=args.arch, embed_dim=args.embed_dim, depths=args.depths,
+                num_heads=args.heads, window_size=args.window, mlp_ratio=args.mlp_ratio)
+
+
 def _add_train(sub):
     p = sub.add_parser("train", help="train the SR generator")
+    _add_arch(p, "srresnet")
     p.add_argument("--train-dir", default="data/train")
     p.add_argument("--val-dir", default="data/val")
     p.add_argument("--epochs", type=int, default=30)  # train.py:23
@@ -208,6 +245,7 @@ def _add_upscale(sub):
                    help="tiles per device batch in tiled mode")
     p.add_argument("--dp", action="store_true", help=_DP_HELP)
     p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    _add_arch(p, None)
 
 
 def _add_upscale_dir(sub):
@@ -289,6 +327,7 @@ def config_from_args(args):
             num_residuals=args.num_residuals,
             remat=args.remat,
             compute_dtype=compute_dtype,
+            **_arch_fields(args),
         ),
         data=DataConfig(
             train_dir=args.train_dir,
@@ -381,6 +420,7 @@ def main(argv=None):
 
         devices = _dp_devices(args)
         if latest_ckpt_dir(args.results_dir, args.prefix) is not None:
+            _check_arch(args)
             up = Upscaler.from_checkpoint(
                 args.results_dir, args.prefix, enhance_output=args.enhance,
                 ensemble=args.ensemble, tta=args.tta, ema=args.ema,
@@ -389,7 +429,8 @@ def main(argv=None):
         else:
             print("warning: no checkpoint found, using random weights",
                   file=sys.stderr)
-            up = Upscaler.random_init(enhance_output=args.enhance,
+            up = Upscaler.random_init(_upscale_model_config(args),
+                                      enhance_output=args.enhance,
                                       device=args.device, devices=devices)
         if args.tile:
             from srgan_tpu_torch.utils.image_io import load_image, save_image
@@ -423,6 +464,23 @@ def main(argv=None):
     )
     print(f"upscaled {n} images into {args.output_dir}")
     return n
+
+
+def _upscale_model_config(args):
+    """``upscale``'s model without a checkpoint: the flags' architecture."""
+    from srgan_tpu_torch.config import ModelConfig
+
+    return ModelConfig(**{**_arch_fields(args), "generator": args.arch or "srresnet"})
+
+
+def _check_arch(args) -> None:
+    """``upscale --arch`` beside a checkpoint: its sidecar has to agree."""
+    from srgan_tpu_torch.training.checkpoint import load_model_config
+
+    saved = load_model_config(args.results_dir, args.prefix)
+    if args.arch is not None and saved is not None and saved.generator != args.arch:
+        raise SystemExit(f"--arch {args.arch}: the checkpoint in {args.results_dir} is "
+                         f"{saved.generator!r} (its {args.prefix}_model.json)")
 
 
 def _dp_devices(args):

@@ -22,7 +22,13 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """SRResNet generator hyperparameters (reference ``src/models.py:44-87``)."""
+    """Generator hyperparameters: SRResNet's (reference
+    ``src/models.py:44-87``), and after them the port's own fields
+    (``PORT_ONLY_FIELDS``), which name the architecture and give SwinIR's
+    widths (``models/swinir.py``). Their defaults build SRResNet, and are
+    SwinIR-M's published widths where ``generator="swinir"``; SwinIR reads
+    ``in_channels``, ``upscale_factor``, ``compute_dtype`` and, as its
+    upsampler's width, ``num_features``."""
 
     in_channels: int = 3
     num_features: int = 64
@@ -53,6 +59,28 @@ class ModelConfig:
     # bfloat16 compute keeps the conv towers on the MXU's fast path; params
     # stay float32 and are cast per-op.
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
+    # The port's own: the architecture, "srresnet" | "swinir" (``--arch``)
+    generator: str = "srresnet"
+    # SwinIR (Liang et al., arXiv:2108.10257): token width, Swin layers per
+    # residual group, heads per group, window side (odd layers shift by half
+    # of it), MLP hidden width over the token width
+    embed_dim: int = 180
+    depths: Tuple[int, ...] = (6, 6, 6, 6, 6, 6)
+    num_heads: Tuple[int, ...] = (6, 6, 6, 6, 6, 6)
+    window_size: int = 8
+    mlp_ratio: float = 2.0
+
+
+# ModelConfig's fields that srgan_tpu/config.py does not have
+PORT_ONLY_FIELDS = ("generator", "embed_dim", "depths", "num_heads", "window_size",
+                    "mlp_ratio")
+
+
+def shared_fields(cfg: ModelConfig) -> dict:
+    """``asdict(cfg)`` without ``PORT_ONLY_FIELDS``: the fields the JAX
+    package's ``ModelConfig`` has."""
+    return {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k not in PORT_ONLY_FIELDS}
 
 
 @dataclasses.dataclass(frozen=True)

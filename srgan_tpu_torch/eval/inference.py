@@ -31,7 +31,7 @@ import torch.nn as nn
 
 from srgan_tpu_torch.config import ModelConfig
 from srgan_tpu_torch.models.enhancer import enhance
-from srgan_tpu_torch.models.srresnet import SRResNet, init_generator
+from srgan_tpu_torch.models import generator_from_config, init_generator
 from srgan_tpu_torch.training.steps import (
     infer_step,
     infer_step_ensemble,
@@ -88,7 +88,7 @@ class Upscaler:
         device=None,
         devices: Optional[Sequence] = None,
     ):
-        """``model_or_models``: one ``SRResNet``, or with ``ensemble=True``
+        """``model_or_models``: one generator, or with ``ensemble=True``
         the pool's members (same architecture), whose member-MEAN SR every
         forward returns (``infer_step_ensemble``). The reference serves only
         member 0 (``src/evaluation.py:22-31``); the ensemble puts the rest to
@@ -167,7 +167,7 @@ class Upscaler:
             states = [ckpt.restore_generator_params(results_dir, prefix, ema=ema)]
         models = []
         for sd in states:
-            model = SRResNet.from_config(model_cfg)
+            model = generator_from_config(model_cfg)
             model.load_state_dict(sd)
             models.append(model)
         if len(models) == 1:
@@ -181,7 +181,7 @@ class Upscaler:
         from srgan_tpu_torch.utils.torch_port import load_torch_checkpoint
 
         cfg, sd = load_torch_checkpoint(path)
-        model = SRResNet.from_config(cfg)
+        model = generator_from_config(cfg)
         model.load_state_dict(sd)
         return cls(model, **kw)
 
@@ -197,6 +197,12 @@ class Upscaler:
         else:
             x = torch.from_numpy(to_float01(arr)).to(self.device)
         return (x[None] if arr.ndim == 3 else x), arr.ndim == 3
+
+    def _pad_px(self, x: torch.Tensor) -> int:
+        """The LR pixels the model pads the batch ``x`` with (SwinIR's
+        reflect padding up to its window; none for SRResNet)."""
+        pad = getattr(self.model, "pad_pixels", None)
+        return 0 if pad is None else x.shape[0] * pad(x.shape[1], x.shape[2])
 
     def _local(self, members, x: torch.Tensor, u8: bool) -> torch.Tensor:
         """One device's SR of ``x`` with its ``members``, in the upscaler's
@@ -238,7 +244,7 @@ class Upscaler:
         with span("serve.request", request=self.requests):
             with span("serve.upload"):
                 x, single = self._batch(image)
-            with span("serve.forward"):
+            with span("serve.forward", pad_px=self._pad_px(x)):
                 sr = self.forward(x)
                 if self.enhance_output:
                     sr = enhance(sr)
@@ -255,7 +261,7 @@ class Upscaler:
         with span("serve.request", request=self.requests):
             with span("serve.upload"):
                 x, single = self._batch(image)
-            with span("serve.forward"):
+            with span("serve.forward", pad_px=self._pad_px(x)):
                 out = self._run(x, u8=True)
             with span("serve.fetch"):
                 out = to_host(out, "Upscaler.upscale_u8", pinned=True).numpy()

@@ -92,6 +92,8 @@ def _group_norm(x, scale, bias, groups: int):
 
 
 def _groups(model: SRResNet) -> int:
+    if not isinstance(model, SRResNet):
+        raise TypeError(f"the s2d trunk folds an SRResNet's trunk, not a {type(model).__name__}")
     return model.blocks[0].norm1.num_groups
 
 

@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from srgan_tpu_torch.models.srresnet import SRResNet
 from srgan_tpu_torch.parallel.mesh import all_gather_cat, world_size
 from srgan_tpu_torch.utils.platform import disable_tf32, make_deterministic, resolve_device
 
@@ -136,6 +137,10 @@ def upscale_spatially_sharded(
     APPROXIMATION near the right border (replicated-edge context instead of
     zero padding) that also shifts GroupNorm's statistics (the padded stripe
     is in them), exactly as JAX's sharded program computes it."""
+    if not isinstance(model, SRResNet):
+        # SwinIR's attention windows are no stencil a W halo covers
+        raise ValueError(f"W-sharded serving swaps the convs and GroupNorms of an "
+                         f"SRResNet; {type(model).__name__} is not one")
     dev = resolve_device(device)
     disable_tf32()
     make_deterministic()

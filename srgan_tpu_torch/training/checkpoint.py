@@ -7,7 +7,8 @@ state (``opt_state``: Adam's ``mu``, ``nu`` and ``count`` in place of
 optax's state) and, when trained, ``ema_params``; the pool's bookkeeping
 (``pool_meta``, ``GeneratorPool.snapshot()``), the ``epoch`` and, in the
 GAN phase, the ``discriminator``'s ``params`` and ``opt_state``. Tensors are
-keyed by the model's ``state_dict`` names and saved on the host.
+keyed by the model's ``state_dict`` names and saved on the host, each list
+(``params``, ``mu``, ...) as views of one host buffer a dtype.
 
 A restore crosses phases and pool sizes as JAX's does: a pixel-phase
 snapshot restores into a GAN trainer (its fresh discriminator kept), a
@@ -20,8 +21,9 @@ On disk, as in JAX: each snapshot is a directory ``{prefix}_ckpt@{epoch}``
 (``…@{epoch}.{k}`` when that epoch was snapshotted before), written under a
 temporary name and committed by ``os.replace``; older snapshots are deleted
 only after a newer one commits, so at every instant one complete snapshot
-exists. A ``{prefix}_model.json`` sidecar records the architecture,
-byte-equal to JAX's for the same ``ModelConfig``.
+exists. A ``{prefix}_model.json`` sidecar records the architecture: for
+an SRResNet byte-equal to JAX's for the same ``ModelConfig``, for another
+architecture every field, ``generator`` among them.
 
 Periodic saves (``block=False``) copy every tensor to the host before
 ``save_checkpoint`` returns (the train step updates the parameters in
@@ -42,7 +44,7 @@ from typing import List, Optional
 
 import torch
 
-from srgan_tpu_torch.config import ModelConfig, TrainConfig
+from srgan_tpu_torch.config import ModelConfig, TrainConfig, shared_fields
 from srgan_tpu_torch.training.pool import GeneratorPool
 from srgan_tpu_torch.training.train_state import TrainState
 
@@ -130,14 +132,26 @@ def _gc_old_ckpts(results_dir: str, prefix: str, keep: str) -> None:
             shutil.rmtree(path, ignore_errors=True)
 
 
-def _host(t: torch.Tensor) -> torch.Tensor:
-    # a copy even of a CPU tensor: the step updates the original in place
-    return t.detach().to("cpu", copy=True)
+def _host(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Host copies of ``tensors`` (copies even of CPU tensors: the step
+    updates the originals in place), one transfer a dtype: the tensors are
+    flattened into one buffer on their device, which crosses at once, and
+    each copy is a view of it. One synchronous transfer a tensor would cost
+    a round trip each (SwinIR-M: 496 a list)."""
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    groups: dict = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault((t.dtype, t.device), []).append(i)
+    for idx in groups.values():
+        flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx]).cpu()
+        for i, piece in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = piece.view(tensors[i].shape)
+    return out
 
 
 def _named(state: TrainState, tensors) -> dict:
     names = [n for n, _ in state.model.named_parameters()]
-    return {n: _host(t) for n, t in zip(names, tensors)}
+    return dict(zip(names, _host(list(tensors))))
 
 
 def _state_entry(state: TrainState) -> dict:
@@ -193,7 +207,7 @@ def save_checkpoint(
     os.makedirs(results_dir, exist_ok=True)
     if model_config is not None:
         with open(os.path.join(results_dir, f"{prefix}_model.json"), "w") as f:
-            json.dump(dataclasses.asdict(model_config), f, indent=2)
+            json.dump(_sidecar(model_config), f, indent=2)
     payload = {
         "generators": [_generator_entry(m.state) for m in pool.members],
         "pool_meta": pool.snapshot(),
@@ -320,6 +334,13 @@ def restore_checkpoint(results_dir: str, prefix: str, *, pool: GeneratorPool,
     return pool, d_state, int(restored["epoch"])
 
 
+def _sidecar(cfg: ModelConfig) -> dict:
+    """The sidecar's fields: an SRResNet's are JAX's (``shared_fields``, so
+    the file is byte-equal to the JAX package's), another architecture's
+    are all of them, ``generator`` among them."""
+    return shared_fields(cfg) if cfg.generator == "srresnet" else dataclasses.asdict(cfg)
+
+
 def load_model_config(results_dir: str, prefix: str) -> Optional[ModelConfig]:
     """Read the architecture sidecar written by :func:`save_checkpoint`."""
     path = os.path.join(results_dir, f"{prefix}_model.json")
@@ -329,7 +350,9 @@ def load_model_config(results_dir: str, prefix: str) -> Optional[ModelConfig]:
         data = json.load(f)
     # tolerate sidecars of other versions: drop keys ModelConfig lacks
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
-    return ModelConfig(**{k: v for k, v in data.items() if k in fields})
+    data = {k: tuple(v) if isinstance(v, list) else v for k, v in data.items()
+            if k in fields}
+    return ModelConfig(**data)
 
 
 def restore_generator_params(results_dir: str, prefix: str, index: int = 0,

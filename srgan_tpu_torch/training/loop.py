@@ -18,7 +18,9 @@ every generator step is given: the trained contrastive encoder of
 
 Loss scalars stay on the device: every batch packs them into one tensor,
 and the loop fetches batch k−1's while batch k is already queued on the
-card (one host fetch per batch, the JAX loop's lagged drain).
+card (one host fetch per batch, the JAX loop's lagged drain). The copy of
+batch k−1's tensor is queued right behind its step, so the fetch waits for
+step k−1 alone and step k keeps the card busy meanwhile.
 
 One process drives one device. Where the process has joined a group
 (``parallel.mesh.initialize_multihost``, ``train --multihost``) the run is
@@ -63,7 +65,7 @@ from srgan_tpu_torch.config import Config
 from srgan_tpu_torch.data.pipeline import DeviceCacheBudget, TrainPipeline
 from srgan_tpu_torch.models.discriminator import init_discriminator
 from srgan_tpu_torch.models.encoder import init_encoder_extractor
-from srgan_tpu_torch.models.srresnet import init_generator
+from srgan_tpu_torch.models import init_generator
 from srgan_tpu_torch.models.vgg import init_vgg_extractor
 from srgan_tpu_torch.ops.resize import resize_bilinear
 from srgan_tpu_torch.parallel import mesh
@@ -93,7 +95,7 @@ from srgan_tpu_torch.utils.platform import (
     resolve_device,
 )
 from srgan_tpu_torch.utils.plotting import save_comparison, save_rating_curve
-from srgan_tpu_torch.utils.profiling import span, tags, to_host
+from srgan_tpu_torch.utils.profiling import HostRead, span, tags, to_host
 
 # the epoch record's loss keys, in the JAX loop's order
 _SUM_KEYS = ("g_loss", "com_loss", "tv_loss", "g_d_loss", "d_loss", "p_loss")
@@ -157,6 +159,14 @@ class Trainer:
             raise ValueError(
                 f"PoolConfig.member_exec must be 'vmap' or 'scan', got "
                 f"{cfg.pool.member_exec!r}"
+            )
+        if (self.use_stacked and cfg.pool.member_exec == "vmap"
+                and cfg.model.generator != "srresnet"):
+            # the vmap executor's contract (grouped convs, RematBlock's vmap
+            # rule) is SRResNet's; the scan executor runs any generator
+            raise ValueError(
+                f"PoolConfig.member_exec 'vmap' (--pool-exec vmap) runs SRResNet pools "
+                f"only, not {cfg.model.generator!r}: use the scan executor"
             )
         # the stacked pool's executor: the member loop, or the vmap region
         self.pool_steps = (
@@ -334,10 +344,10 @@ class Trainer:
         self.throughput.begin()
         progress = ProgressLine(cfg.train.progress, total=pipeline.steps_per_epoch())
 
-        def drain(packed, batch_idx, images):
+        def drain(read, batch_idx, images):
             # one host fetch a batch: (5, N) losses, + d_loss in the GAN phase
             with span("loop.drain", epoch=epoch, step=batch_idx):
-                vals = to_host(packed.reshape(-1), "train_epoch.drain").tolist()
+                vals = read.result().tolist()
                 self._check_finite(vals, names, epoch, batch_idx)
                 if use_gan:
                     sums["d_loss"] += vals.pop()
@@ -371,9 +381,11 @@ class Trainer:
                     self.spool.state, metrics = pool_step(
                         self.spool.state, hr, lr_imgs, g_lr, **px,
                     )
+                # batch k's losses start for the host now, behind its step
+                read = HostRead(metrics["packed"].reshape(-1), "train_epoch.drain")
                 if pending is not None:
                     drain(*pending)
-                pending = (metrics["packed"], n_batches, hr.shape[0])
+                pending = (read, n_batches, hr.shape[0])
                 n_batches += 1
         if pending is not None:
             drain(*pending)
@@ -407,11 +419,11 @@ class Trainer:
         self.throughput.begin()
         progress = ProgressLine(cfg.train.progress, total=pipeline.steps_per_epoch())
 
-        def drain(packed, layout, batch_idx, images):
+        def drain(read, layout, batch_idx, images):
             # one host fetch a batch: every member's packed vector, then a
             # separate D update's loss
             with span("loop.drain", epoch=epoch, step=batch_idx):
-                vals = to_host(packed, "train_epoch.drain").tolist()
+                vals = read.result().tolist()
                 names = [f"{k}[{i}]" for i, _, size in layout
                          for k in (*PACKED_KEYS, "d_loss")[:size]]
                 if len(names) < len(vals):
@@ -483,10 +495,12 @@ class Trainer:
                             self.d_state, hr, sr_for_d, d_lr
                         )
                     packed.append(d_metrics["d_loss"].reshape(1))
-                # batch k is queued before batch k−1's scalars are fetched
+                # batch k is queued before batch k−1's scalars are fetched;
+                # its own start for the host now, behind its step
+                read = HostRead(torch.cat(packed), "train_epoch.drain")
                 if pending is not None:
                     drain(*pending)
-                pending = (torch.cat(packed), layout, n_batches, hr.shape[0])
+                pending = (read, layout, n_batches, hr.shape[0])
                 n_batches += 1
         if pending is not None:
             drain(*pending)

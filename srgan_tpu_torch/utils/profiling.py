@@ -11,7 +11,9 @@ Usage:
         ...
     with tags(epoch=3, step=7):         # attrs of every span opened inside
         ...
-    vals = to_host(packed, "train_epoch.drain").tolist()   # a host sync, as a span
+    psnr = float(to_host(psnr, "compute_score"))   # a host sync, as a span
+    read = HostRead(packed, "train_epoch.drain")    # a read queued now ...
+    vals = read.result().tolist()                   # ... waited on later, as a sync span
 
 **On and off.** Tracing is on exactly while a torch.profiler session is on
 in the process: ``trace()`` (``train --profile-dir``) or any caller's
@@ -35,7 +37,8 @@ trace, as the args of each ``srgan.*`` event.
 
 ``to_host`` is every device-to-host read of the training loop and the
 ``Upscaler``: a ``sync`` span, attr ``site``, around ``Tensor.cpu()``, or
-with ``pinned=True`` around a copy into page-locked memory.
+with ``pinned=True`` around a copy into page-locked memory; the step loop's
+drain queues its read early (``HostRead``) and spans only the wait.
 
 ``trace`` records host and CUDA activity and writes ``trace.json``
 (Perfetto or ``chrome://tracing``) into ``log_dir`` when the block ends,
@@ -163,6 +166,35 @@ def to_host(t: torch.Tensor, site: str, pinned: bool = False) -> torch.Tensor:
         if pinned and t.is_cuda:
             return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
         return t.cpu()
+
+
+class HostRead:
+    """A device-to-host read of ``t`` queued now, right behind the work that
+    makes it. ``result()`` waits for that copy alone, inside a ``sync`` span
+    as ``to_host``'s, and returns the host tensor.
+
+    The training loop drains step k−1's losses after it queues step k. A
+    read queued then (``to_host``) waits behind step k on the stream, so the
+    card runs dry at every step's end until the host has queued the next;
+    a read queued after step k−1 is done by then, and step k keeps the card
+    busy while the host queues step k+1."""
+
+    def __init__(self, t: torch.Tensor, site: str):
+        self.site = site
+        self._done = None
+        if t.is_cuda:
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record(torch.cuda.current_stream(t.device))
+        else:
+            self._host = t.cpu()
+
+    def result(self) -> torch.Tensor:
+        with span("sync", site=self.site):
+            if self._done is not None:
+                self._done.synchronize()
+            return self._host
 
 
 def spans() -> List[Span]:

@@ -19,7 +19,7 @@ from srgan_tpu.config import PoolConfig as JPoolConfig
 from srgan_tpu.config import TrainConfig as JTrainConfig
 from srgan_tpu.training import checkpoint as jckpt
 from srgan_tpu.training import pool as jpool
-from srgan_tpu_torch.config import ModelConfig, PoolConfig, TrainConfig
+from srgan_tpu_torch.config import ModelConfig, PoolConfig, TrainConfig, shared_fields
 from srgan_tpu_torch.models.srresnet import init_generator
 from srgan_tpu_torch.training import checkpoint as ckpt
 from srgan_tpu_torch.training import pool as tpool
@@ -190,12 +190,11 @@ class TestCheckpointFiles:
         ckpt.save_checkpoint(str(tmp_path), "Run", pool=_pool(), epoch=1,
                              model_config=cfg)
         # srgan_tpu/training/checkpoint.py writes the sidecar with this call
-        want = json.dumps(dataclasses.asdict(JModelConfig(**dataclasses.asdict(cfg))),
-                          indent=2)
+        want = json.dumps(dataclasses.asdict(JModelConfig(**shared_fields(cfg))), indent=2)
         assert (tmp_path / "Run_model.json").read_text() == want
         assert ckpt.load_model_config(str(tmp_path), "Run") == cfg
         assert jckpt.load_model_config(str(tmp_path), "Run") == JModelConfig(
-            **dataclasses.asdict(cfg))
+            **shared_fields(cfg))
         assert ckpt.load_model_config(str(tmp_path), "Absent") is None
 
     def test_finetune_entry_matches_jax(self):
@@ -272,3 +271,18 @@ class TestRestore:
             ckpt.restore_generator_params(str(tmp_path), "Plain", ema=True)
         with pytest.raises(FileNotFoundError):
             ckpt.restore_checkpoint(str(tmp_path), "Absent", pool=fresh)
+
+
+def test_host_copies_are_one_buffer_a_dtype_and_copies():
+    """The snapshot's host copies: equal to the tensors, of their shapes
+    and dtypes (a 0-d one among them), views of one buffer a dtype, and
+    unmoved by a later in-place update of the originals."""
+    ts = [torch.arange(6.0).reshape(2, 3), torch.tensor(7, dtype=torch.int64),
+          torch.ones(4, dtype=torch.bfloat16), torch.tensor(2.5), torch.zeros(0, 3)]
+    out = ckpt._host(ts)
+    for t, h in zip(ts, out):
+        assert h.shape == t.shape and h.dtype == t.dtype and torch.equal(h, t)
+    assert out[0].untyped_storage().data_ptr() == out[3].untyped_storage().data_ptr()
+    assert out[0].untyped_storage().data_ptr() != out[2].untyped_storage().data_ptr()
+    ts[0].add_(1.0)
+    assert torch.equal(out[0], torch.arange(6.0).reshape(2, 3))

@@ -537,3 +537,85 @@ class TestCudaGroupNorm:
         assert remat[4] == plain[4] == {"group_norm": 0}
         assert torch.equal(remat[0], plain[0]) and torch.equal(remat[1], plain[1])
         assert all(torch.equal(a, b) for a, b in zip(remat[2], plain[2]))
+
+
+@pytest.mark.cuda
+class TestWindowAttention:
+    """SwinIR's windowed attention kernels (``csrc/window_attention.cu``)
+    against the op's plain route in float64 on the card, and SwinIR through
+    them against the CPU's plain route. Bars as
+    ``tests/test_torch_window_attn_source.py`` holds the emulated source:
+    f32 2e-5 of the largest magnitude; bf16 out one bf16 ulp at it, dqkv
+    1e-2 (rounded to bf16), dbias 2e-3 (D_i reads the rounded O)."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+    @pytest.mark.parametrize("grid,heads,window,shift", [
+        ((2, 32, 48), 6, 8, 4), ((2, 32, 48), 6, 8, 0), ((3, 12, 20), 3, 4, 2)])
+    def test_kernels_match_plain(self, cuda_device, dtype, grid, heads, window, shift):
+        from srgan_tpu_torch.ops import window_attention as wa
+        from srgan_tpu_torch.ops.cuda import window_attention_kernel as wk
+
+        b, h, w = grid
+        d, n = (30 if window == 8 else 12), window * window
+        g = torch.Generator(device=cuda_device).manual_seed(0)
+        qkv = torch.randn((b, h * w, 3 * heads * d), generator=g, device=cuda_device).to(dtype)
+        bias = torch.randn((heads, n, n), generator=g, device=cuda_device) * 0.5
+        dout = torch.randn((b, h * w, heads * d), generator=g, device=cuda_device).to(dtype)
+        wa.reset_paths()
+        wk.reset_launches()
+        x = qkv.clone().requires_grad_()
+        bb = bias.clone().requires_grad_()
+        out = wa.window_attention(x, bb, heads, window, shift, grid)
+        dq, db = torch.autograd.grad(out, [x, bb], dout)
+        assert wa.paths == {"cuda": 1, "cpu": 0}
+        assert wk.launches == {"forward": 1, "backward": 1}
+        x64 = qkv.double().requires_grad_()
+        b64 = bias.double().requires_grad_()
+        o64 = wa.window_attention_plain(x64, b64, heads, window, shift, grid)
+        dq64, db64 = torch.autograd.grad(o64, [x64, b64], dout.double())
+        rel = lambda a, e: float((a.double() - e).abs().max() / e.abs().max())  # noqa: E731
+        bars = (2.0 ** -7, 1e-2, 2e-3) if dtype == torch.bfloat16 else (2e-5, 2e-5, 2e-5)
+        assert out.dtype == dq.dtype == dtype and db.dtype == torch.float32
+        for got, want, bar in zip((out, dq, db), (o64.detach(), dq64, db64), bars):
+            assert rel(got, want) <= bar
+
+    def test_dbias_is_bit_identical_across_runs(self, cuda_device):
+        from srgan_tpu_torch.ops.cuda import window_attention_kernel as wk
+
+        grid, heads, window, shift = (4, 64, 64), 6, 8, 4
+        g = torch.Generator(device=cuda_device).manual_seed(1)
+        qkv = torch.randn((4, 4096, 540), generator=g, device=cuda_device).bfloat16()
+        bias = torch.randn((heads, 64, 64), generator=g, device=cuda_device) * 0.5
+        dout = torch.randn((4, 4096, 180), generator=g, device=cuda_device).bfloat16()
+        runs = []
+        for _ in range(2):
+            out, lse = wk.window_attention_cuda(qkv, bias, heads, window, shift, grid)
+            runs.append((out, *wk.window_attention_backward_cuda(qkv, bias, out, lse, dout,
+                                                                 heads, window, shift, grid)))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+    def test_swinir_on_the_card_matches_the_cpu(self, cuda_device):
+        """A small SwinIR (embed 36, 2 groups of 2 layers, 3 heads of 12,
+        window 4) in fp32 on a non-multiple-of-window image: the card's
+        output (the kernels) within 1e-4 of max|y| of the CPU's (the plain
+        route), and its gradients within 1e-3 of each leaf's norm."""
+        from srgan_tpu_torch.config import ModelConfig
+        from srgan_tpu_torch.models import init_generator
+        from srgan_tpu_torch.ops.cuda import window_attention_kernel as wk
+
+        cfg = ModelConfig(generator="swinir", embed_dim=36, depths=(2, 2), num_heads=(3, 3),
+                          window_size=4, num_features=16)
+        cpu = init_generator(cfg, seed=0)
+        card = init_generator(cfg, seed=0, device=cuda_device)
+        x = torch.rand(2, 12, 20, 3, generator=torch.Generator().manual_seed(0))
+        wk.reset_launches()
+        y_card = card(x.to(cuda_device))
+        g_card = torch.autograd.grad(y_card.square().mean(), list(card.parameters()))
+        assert wk.launches == {"forward": 4, "backward": 4}
+        y_cpu = cpu(x)
+        g_cpu = torch.autograd.grad(y_cpu.square().mean(), list(cpu.parameters()))
+        assert float((y_card.detach().cpu() - y_cpu).abs().max()) <= \
+            1e-4 * float(y_cpu.abs().max())
+        for a, b in zip(g_card, g_cpu):
+            assert float((a.cpu() - b).norm()) <= 1e-3 * max(float(b.norm()), 1e-12)

@@ -26,6 +26,7 @@ from srgan_tpu.config import PoolConfig as JPoolConfig
 from srgan_tpu.config import TrainConfig as JTrainConfig
 from srgan_tpu.training.loop import Trainer as JTrainer
 from srgan_tpu_torch import cli
+from srgan_tpu_torch.config import shared_fields
 from srgan_tpu_torch.data.pipeline import TrainPipeline
 from srgan_tpu_torch.training import checkpoint as ckpt
 from srgan_tpu_torch.training.loop import Trainer
@@ -74,7 +75,7 @@ class TestTrainerAgainstJax:
         flags = dict(checkpoint_every=1, keep_best=True)
         cfg_t = cfg_t.replace(train=dataclasses.replace(cfg_t.train, **flags))
         j_train = {**dataclasses.asdict(cfg_t.train), "results_dir": str(tmp_path / "jax")}
-        cfg_j = JConfig(model=JModelConfig(**dataclasses.asdict(cfg_t.model)),
+        cfg_j = JConfig(model=JModelConfig(**shared_fields(cfg_t.model)),
                         discriminator=JDiscriminatorConfig(
                             **dataclasses.asdict(cfg_t.discriminator)),
                         data=JDataConfig(**dataclasses.asdict(cfg_t.data)),

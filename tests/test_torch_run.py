@@ -235,9 +235,17 @@ class TestCLI:
                 for a in sub.choices["train"]._actions if a.dest != "help"}
 
     def test_train_flags_are_jax_flags_plus_device(self):
+        """The JAX CLI's train flags and defaults, plus ``--device`` and the
+        port's own architecture flags (SwinIR's, at defaults that build
+        SRResNet)."""
         port = self._train_actions(cli._add_train)
         jax_flags = self._train_actions(j_add_train)
         assert port.pop("device") == (("--device",), "cuda")
+        own = {k: port.pop(k) for k in ("arch", "embed_dim", "depths", "heads", "window",
+                                        "mlp_ratio")}
+        assert own == {"arch": (("--arch",), "srresnet"), "embed_dim": (("--embed-dim",), 180),
+                       "depths": (("--depths",), (6,) * 6), "heads": (("--heads",), (6,) * 6),
+                       "window": (("--window",), 8), "mlp_ratio": (("--mlp-ratio",), 2.0)}
         assert port == jax_flags
 
     def test_config_mapping_matches_jax_cli(self, tmp_path):

@@ -125,6 +125,21 @@ def test_to_host_is_one_sync_span(tmp_path, pinned):
     assert [(r.name, r.attrs) for r in recs] == [("sync", {"site": "test"})]
 
 
+def test_host_read_spans_only_its_wait(tmp_path):
+    """A read queued early opens no span; waiting for it is one ``sync``
+    span named by its site, and it reads the tensor as it was queued."""
+    x = torch.arange(6.0).reshape(2, 3)
+
+    def read():
+        r = profiling.HostRead(x, "test")
+        assert profiling.spans() == []
+        return r.result()
+
+    out, _, recs = _traced(tmp_path, read)
+    assert torch.equal(out, x)
+    assert [(r.name, r.attrs) for r in recs] == [("sync", {"site": "test"})]
+
+
 # ------------------------------------------------------------- span trees
 
 

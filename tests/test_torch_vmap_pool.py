@@ -41,7 +41,7 @@ from srgan_tpu.config import TrainConfig as JTrainConfig
 from srgan_tpu.training import stacked_pool as jsp
 from srgan_tpu.training.loop import Trainer as JTrainer
 from srgan_tpu_torch import cli
-from srgan_tpu_torch.config import DiscriminatorConfig, ModelConfig
+from srgan_tpu_torch.config import DiscriminatorConfig, ModelConfig, shared_fields
 from srgan_tpu_torch.models.discriminator import init_discriminator
 from srgan_tpu_torch.models.srresnet import init_generator
 from srgan_tpu_torch.ops.cuda import recon_loss_kernel as rk
@@ -139,7 +139,7 @@ class TestAgainstJax:
         pool = dict(p_gan_above=0.6, member_exec="vmap")
         cfg_t = _gan_config(tmp_path / "torch", 3, **pool)
         j_train = {**dataclasses.asdict(cfg_t.train), "results_dir": str(tmp_path / "jax")}
-        cfg_j = JConfig(model=JModelConfig(**dataclasses.asdict(cfg_t.model)),
+        cfg_j = JConfig(model=JModelConfig(**shared_fields(cfg_t.model)),
                         discriminator=JDiscriminatorConfig(
                             **dataclasses.asdict(cfg_t.discriminator)),
                         data=JDataConfig(**dataclasses.asdict(cfg_t.data)),

@@ -37,7 +37,7 @@ from srgan_tpu.config import TrainConfig as JTrainConfig
 from srgan_tpu.training import stacked_pool as jsp
 from srgan_tpu.training.loop import Trainer as JTrainer
 from srgan_tpu_torch import cli
-from srgan_tpu_torch.config import DiscriminatorConfig, ModelConfig
+from srgan_tpu_torch.config import DiscriminatorConfig, ModelConfig, shared_fields
 from srgan_tpu_torch.models.discriminator import init_discriminator
 from srgan_tpu_torch.models.srresnet import init_generator
 from srgan_tpu_torch.models.vgg import VGG19Features
@@ -118,7 +118,7 @@ class TestAgainstJax:
         cfg_t = _gan_config(tmp_path / "torch", 3, **pool)
         cfg_t = cfg_t.replace(model=dataclasses.replace(cfg_t.model, remat=True))
         j_train = {**dataclasses.asdict(cfg_t.train), "results_dir": str(tmp_path / "jax")}
-        cfg_j = JConfig(model=JModelConfig(**dataclasses.asdict(cfg_t.model)),
+        cfg_j = JConfig(model=JModelConfig(**shared_fields(cfg_t.model)),
                         discriminator=JDiscriminatorConfig(
                             **dataclasses.asdict(cfg_t.discriminator)),
                         data=JDataConfig(**dataclasses.asdict(cfg_t.data)),
