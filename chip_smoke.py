@@ -173,10 +173,12 @@ Phases, each of which must pass (any failure exits non-zero):
      each in bf16 and the device time of one step of each by group.
 
   19. SwinIR's windowed attention (``csrc/window_attention.cu``) at
-     SwinIR-M's training shape, shifted and plain, bf16 and f32: against the
-     op's plain route in float64 on the card, two calls bit for bit (dBias
-     too), device ms beside the byte bound, the plain route's ms, and which
-     of torch's ``scaled_dot_product_attention`` backends takes the shape.
+     SwinIR-M's training shape, shifted and plain, bf16 (the tensor-core
+     kernels) and f32 (the CUDA-core kernels): against the op's plain route
+     in float64 on the card, two calls bit for bit (dBias too), launches by
+     design, device ms beside the byte bound, each kernel's registers and
+     static shared memory, the plain route's ms, and which of torch's
+     ``scaled_dot_product_attention`` backends takes the shape.
      ``python3 chip_smoke.py --phase window_attention`` runs it alone.
 
 It prints a ``{"kernels": [...]}`` line (K2's and K3's records carry their
@@ -568,14 +570,18 @@ WINDOW_ATTN_HEADS, WINDOW_ATTN_DIM, WINDOW_ATTN_WINDOW = 6, 30, 8
 def window_attention_phase(dev) -> dict:
     """SwinIR's windowed attention (``csrc/window_attention.cu``) at
     SwinIR-M's training shape (``WINDOW_ATTN_GRID``: tokens (32, 4096), 6
-    heads of 30, window 8), shifted (4) and plain, bf16 and f32: forward,
-    dqkv and dbias against the op's plain route in float64 on the card
-    (f32 2e-5 of max|y|; bf16: out one bf16 ulp at max|y|, dqkv 1e-2, dbias
-    2e-3 of max, as ``tests/test_torch_window_attn_source.py`` holds them),
-    two calls bit for bit, dbias included; the kernels' device ms by the
-    profiler and the wrappers' by events, beside the bound (q, k, v, O; and
-    dO, dq, dk, dv backward, at the input's width, over HBM's bandwidth),
-    the plain route's ms in bf16, and which of torch's
+    heads of 30, window 8), shifted (4) and plain, bf16 (the tensor-core
+    kernels) and f32 (the CUDA-core kernels): forward, dqkv and dbias
+    against the op's plain route in float64 on the card (f32 2e-5 of
+    max|y|; bf16: out one bf16 ulp at max|y|, dqkv 1e-2, dbias 2e-3 of max,
+    as ``tests/test_torch_window_attn_source.py`` holds them), two calls bit
+    for bit, dbias included, and ``launches`` by design; the kernels' device
+    ms by the profiler (every name of the dtype's design seen, and of
+    ``KERNELS`` over both) and the wrappers' by events, beside the bound (q,
+    k, v, O; and dO, dq, dk, dv backward, at the input's width, over HBM's
+    bandwidth), each kernel's ``ptxas`` registers, static shared memory
+    and spills (the tensor-core kernels' is dynamic: ``MmaSmem`` in the
+    source), the plain route's ms in bf16, and which of torch's
     ``scaled_dot_product_attention`` backends takes the shape (each
     refusal with torch's reasons) (the math
     path's ms as ``library_ms``; the port never calls it)."""
@@ -583,14 +589,27 @@ def window_attention_phase(dev) -> dict:
     from srgan_tpu_torch.ops.cuda import window_attention_kernel as wk
     from srgan_tpu_torch.ops.cuda.build import ptxas_report
 
+    resources, kernel = {}, None
     for line in ptxas_report("window_attention").splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             print(f"ptxas window_attention: {line.strip()}")
+        named = re.search(r"entry function '(\S+)'", line)
+        if named:
+            kernel = next((k for k in wk.KERNELS if k in named.group(1)), None)
+        for key, rx in (("registers", r"Used (\d+) registers"), ("smem_bytes", r"(\d+) bytes smem"),
+                        ("spill_bytes", r"(\d+) bytes spill stores")):
+            found = re.search(rx, line)
+            if kernel and found:
+                resources.setdefault(kernel, {})[key] = int(found.group(1))
     grid, heads, d, ws = WINDOW_ATTN_GRID, WINDOW_ATTN_HEADS, WINDOW_ATTN_DIM, WINDOW_ATTN_WINDOW
     b, h, w = grid
     n, c = ws * ws, heads * d
-    out = {}
+    out = {"ptxas": resources}
+    seen = set()
     for dtype in (torch.bfloat16, torch.float32):
+        design = wk.DESIGNS[dtype]
+        names = wk.KERNELS_BY_DESIGN[design]
+        fwd_name, bwd_name, dbias_name = names
         for shift in (ws // 2, 0):
             tag = f"{str(dtype).split('.')[-1]} shift {shift}"
             g = torch.Generator(device=dev).manual_seed(0)
@@ -604,7 +623,10 @@ def window_attention_phase(dev) -> dict:
                 runs.append((o, lse, *wk.window_attention_backward_cuda(
                     qkv, bias, o, lse, dout, heads, ws, shift, grid)))
             torch.cuda.synchronize()
-            check(wk.launches == {"forward": 2, "backward": 2}, f"window attn {tag}: {wk.launches}")
+            other = "simt" if design == "mma" else "mma"
+            check(wk.launches == {"forward": 2, "backward": 2, f"forward_{design}": 2,
+                                  f"backward_{design}": 2, f"forward_{other}": 0,
+                                  f"backward_{other}": 0}, f"window attn {tag}: {wk.launches}")
             check(all(torch.equal(a, b2) for a, b2 in zip(*runs)),
                   f"window attn {tag}: two calls differ")
             o, _, dqkv, dbias = runs[0]
@@ -635,11 +657,12 @@ def window_attention_phase(dev) -> dict:
                 torch.cuda.synchronize()
             by_kernel: dict = {}
             for e in _device_events(prof):
-                for k in wk.KERNELS:
-                    if k in e.name:
-                        ms = e.time_range.elapsed_us() / reps / 1e3
-                        by_kernel[k] = by_kernel.get(k, 0.0) + ms
-            check(set(by_kernel) == set(wk.KERNELS), f"window attn {tag}: profiler saw {by_kernel}")
+                k = next((k for k in wk.KERNELS if k in e.name), None)
+                if k:
+                    ms = e.time_range.elapsed_us() / reps / 1e3
+                    by_kernel[k] = by_kernel.get(k, 0.0) + ms
+            check(set(by_kernel) == set(names), f"window attn {tag}: profiler saw {by_kernel}")
+            seen |= set(by_kernel)
             width = qkv.element_size()
             rec = {
                 "ms": statistics.median(time_ms(fwd, windows=3, reps=5)),
@@ -651,9 +674,10 @@ def window_attention_phase(dev) -> dict:
                 "profiled_names": sorted({e.name for e in _device_events(prof)
                                           if "window_attn_" in e.name}),
             }
-            rec["bound_share"] = rec["bound_ms"] / by_kernel["window_attn_fwd_kernel"]
-            rec["bwd_bound_share"] = rec["bwd_bound_ms"] / (
-                by_kernel["window_attn_bwd_kernel"] + by_kernel["window_attn_dbias_kernel"])
+            rec["design"] = design
+            rec["bound_share"] = rec["bound_ms"] / by_kernel[fwd_name]
+            rec["bwd_bound_share"] = rec["bwd_bound_ms"] / (by_kernel[bwd_name]
+                                                            + by_kernel[dbias_name])
             if dtype == torch.bfloat16:
                 plain = lambda: wa.window_attention_plain(qkv, bias, heads, ws, shift, grid)
                 rec["plain_ms"] = statistics.median(time_ms(plain, windows=3, reps=3))
@@ -661,6 +685,7 @@ def window_attention_phase(dev) -> dict:
             out[tag] = rec
             print(f"window attn {tag}: " + json.dumps(rec), flush=True)
             del qkv, dout, o, lse
+    check(seen == set(wk.KERNELS), f"window attn: the profiler saw {sorted(seen)}")
     return out
 
 

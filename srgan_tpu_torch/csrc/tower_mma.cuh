@@ -1,7 +1,8 @@
-// The PTX primitives of the tensor-core tiles in residual_tower.cu, each
-// behind a small device function: the warp-wide bf16 product with f32
-// accumulators, the shared-memory fragment loads that feed it, and the
-// asynchronous global-to-shared copy with its group wait.
+// The PTX primitives of the tensor-core tiles in residual_tower.cu and
+// window_attention.cu, each behind a small device function: the warp-wide
+// bf16 product with f32 accumulators, the shared-memory fragment loads that
+// feed it, the asynchronous global-to-shared copies with their group wait,
+// and the block's dynamic shared memory.
 //
 // tests/cuda_emu/tower_mma.cuh is a CPU stand-in with the same names and
 // the same semantics, so that g++ can compile and run the kernels.
@@ -57,6 +58,12 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
                :: "r"(smem_addr(smem)), "l"(gmem) : "memory");
 }
 
+// 4 bytes, both addresses 4-byte aligned (.ca: the only form of this size)
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(smem)), "l"(gmem) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -65,4 +72,11 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The block's dynamic shared memory (the launch's third argument), 16-byte
+// aligned
+__device__ __forceinline__ unsigned char* dynamic_smem() {
+  extern __shared__ __align__(16) unsigned char dynamic_smem_bytes[];
+  return dynamic_smem_bytes;
 }

@@ -8,9 +8,19 @@
 ``grid`` is ``(B, H, W)``, the image the tokens of ``qkv`` (B, H·W, 3C)
 tile in row-major order; ``bias`` is (heads, N, N) float32, N = window². The
 kernels take f32 or bf16 ``qkv``, compute in f32 and write the input's
-dtype; a call on CUDA tensors launches or raises, with no fallback. Each
-forward and backward counts once in ``launches``. The library is built by
-the first call that needs it, not by ``build()``'s default set. The
+dtype; a call on CUDA tensors launches or raises, with no fallback.
+
+The design follows qkv's dtype (``DESIGNS``): bf16 runs the tensor-core
+kernels (``window_attn_fwd_mma_kernel``, ``window_attn_bwd_mma_kernel``:
+the products on ``mma.sync``, P and dS fed as a bf16 hi and lo term each, so
+the op still computes in f32), f32 the CUDA-core kernels
+(``window_attn_fwd_kernel``, ``window_attn_bwd_kernel``), which tensor cores
+would round to bf16 or TF32. Both backwards sum dBias's partials with
+``window_attn_dbias_kernel``. Each forward and backward counts once in
+``launches["forward"]`` / ``["backward"]`` and once under its design
+(``forward_mma``, ``backward_mma``, ``forward_simt``, ``backward_simt``):
+a bf16 SwinIR-M step counts 36 + 36 mma and no simt. The library is built
+by the first call that needs it, not by ``build()``'s default set. The
 ``_launch_*`` functions take the library, so that a CPU build of the source
 can be driven with CPU tensors (``tests/test_torch_window_attn_source.py``).
 """
@@ -24,10 +34,18 @@ import torch
 
 from srgan_tpu_torch.ops.cuda.build import current_stream, on_device
 
-launches = {"forward": 0, "backward": 0}
-# The kernels' names: ``h100bench/groups.py`` files none of them in a group
-KERNELS = ("window_attn_fwd_kernel", "window_attn_bwd_kernel", "window_attn_dbias_kernel")
+launches = {"forward": 0, "backward": 0, "forward_mma": 0, "backward_mma": 0,
+            "forward_simt": 0, "backward_simt": 0}
+# The kernels each design launches, by name: ``h100bench/groups.py`` files
+# none of them in a group
+KERNELS_BY_DESIGN = {
+    "simt": ("window_attn_fwd_kernel", "window_attn_bwd_kernel", "window_attn_dbias_kernel"),
+    "mma": ("window_attn_fwd_mma_kernel", "window_attn_bwd_mma_kernel",
+            "window_attn_dbias_kernel"),
+}
+KERNELS = tuple(dict.fromkeys(k for names in KERNELS_BY_DESIGN.values() for k in names))
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DESIGNS = {torch.float32: "simt", torch.bfloat16: "mma"}
 MAX_HEAD_DIM = 32
 MAX_TOKENS = 64
 
@@ -134,6 +152,7 @@ def window_attention_cuda(qkv, bias, heads: int, window: int, shift: int, grid):
         out_lse = _launch_forward(_lib(), qkv, bias, heads, window, shift, grid,
                                   current_stream(qkv))
     launches["forward"] += 1
+    launches[f"forward_{DESIGNS[qkv.dtype]}"] += 1
     return out_lse
 
 
@@ -146,4 +165,5 @@ def window_attention_backward_cuda(qkv, bias, out, lse, dout, heads: int, window
         grads = _launch_backward(_lib(), qkv, bias, out, lse, dout, heads, window, shift,
                                  grid, current_stream(qkv))
     launches["backward"] += 1
+    launches[f"backward_{DESIGNS[qkv.dtype]}"] += 1
     return grads

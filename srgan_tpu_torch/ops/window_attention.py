@@ -21,7 +21,12 @@ once to it.
 The route is picked by device, with no fallback, and counted in ``paths``:
 a CPU tensor takes the plain torch version (:func:`window_attention_plain`,
 autograd through torch's ops), a CUDA tensor the hand-written kernels
-(``ops/cuda/window_attention_kernel.py``), forward and backward.
+(``ops/cuda/window_attention_kernel.py``), forward and backward. On the card
+the kernels' design follows qkv's dtype: bf16 the tensor-core kernels (the
+products on ``mma.sync``; P and dS, f32 intermediates, enter them as a bf16
+hi and lo term each, so the f32 contract above holds), f32 the CUDA-core
+kernels. ``window_attention_kernel.launches`` counts each call by design
+(``forward_mma`` / ``backward_mma``, ``forward_simt`` / ``backward_simt``).
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <map>
 #include <thread>
 #include <vector>
 
@@ -56,11 +57,13 @@ inline dim3 blockIdx, blockDim, gridDim;
 inline std::barrier<>* emu_block_barrier = nullptr;
 inline std::barrier<>* emu_warp_barrier[32];
 inline double emu_slots[1024];
-inline size_t emu_smem_limit = 48 * 1024;
 inline int emu_error = 0;
 alignas(16) inline unsigned char tower_smem[1 << 20];
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp_barrier[threadIdx.x / 32]->arrive_and_wait();
+}
 
 // the card's rsqrtf is within 2 ulp of 1/sqrt; this one rounds twice
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
@@ -90,9 +93,13 @@ V __shfl_down_sync(unsigned, V v, unsigned delta) {
   return emu_shfl(v, [&](int l) { return l + (int)delta < 32 ? l + (int)delta : l; });
 }
 
+// A kernel's dynamic shared memory limit, set by cudaFuncSetAttribute and
+// kept for its later launches, as the card keeps it
+inline std::map<const void*, size_t> emu_smem_limits;
+
 template <typename K>
-int cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
-  emu_smem_limit = bytes;
+int cudaFuncSetAttribute(K kernel, cudaFuncAttribute, int bytes) {
+  emu_smem_limits[reinterpret_cast<const void*>(kernel)] = bytes;
   return cudaSuccess;
 }
 inline int cudaGetDevice(int* d) {
@@ -119,13 +126,13 @@ template <typename... KArgs, typename... Args>
 void emu_launch(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
                 cudaStream_t, Args... args) {
   const unsigned nt = block.x * block.y * block.z;
+  const auto limit = emu_smem_limits.find(reinterpret_cast<const void*>(kernel));
   if (nt > 1024 || nt % 32 || smem > sizeof(tower_smem) ||
-      (smem > 48 * 1024 && smem > emu_smem_limit) || grid.y > 65535 ||
-      grid.z > 65535) {
+      (smem > 48 * 1024 && (limit == emu_smem_limits.end() || smem > limit->second)) ||
+      grid.y > 65535 || grid.z > 65535) {
     emu_error = cudaErrorLaunchFailure;
     return;
   }
-  emu_smem_limit = 48 * 1024;
   gridDim = grid;
   blockDim = block;
   std::barrier<> bar(nt);

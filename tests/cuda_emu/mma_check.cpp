@@ -9,7 +9,10 @@
 //   mode 1  ldmatrix of A stored (row, k) and ldmatrix.trans of B stored
 //           (k, n) in shared memory (the conv tile's loads);
 //   mode 2  ldmatrix.trans of A stored transposed, (k, row) (the wgrad
-//           tile's load of its A), B as in mode 1.
+//           tile's load of its A), B as in mode 1;
+//   mode 3  as mode 1, the operands first rounded to bf16 in global memory
+//           and copied into the block's dynamic shared memory 4 bytes at a
+//           time by cp_async_4 (the window attention's loads).
 #include "cuda_runtime.h"
 #include "tower_mma.cuh"
 
@@ -20,6 +23,8 @@ uint16_t bits(float v) { return __float2bfloat16(v).bits; }
 uint32_t pack(float lo, float hi) { return (uint32_t)bits(lo) | (uint32_t)bits(hi) << 16; }
 
 constexpr int kStride = 24;  // bf16 elements per shared-memory row
+
+__nv_bfloat16 g_ab[2][256];  // mode 3: A and B as bf16 in "global" memory
 
 void mma_check_kernel(const float* A, const float* B, float* D, int mode) {
   const int lane = threadIdx.x, g = lane / 4, t = lane % 4;
@@ -35,19 +40,34 @@ void mma_check_kernel(const float* A, const float* B, float* D, int mode) {
         b[n8][h] = pack(B[k * 16 + n], B[(k + 1) * 16 + n]);
       }
   } else {
-    auto* sa = reinterpret_cast<__nv_bfloat16*>(tower_smem);
+    auto* sa = reinterpret_cast<__nv_bfloat16*>(dynamic_smem());
     auto* sb = sa + 16 * kStride;
-    for (int i = lane; i < 256; i += 32) {
-      const int r = i / 16, c = i % 16;
-      // mode 2 keeps A as (k, row): element A[r][c] at row c, column r
-      sa[mode == 1 ? r * kStride + c : c * kStride + r] = __float2bfloat16(A[i]);
-      sb[r * kStride + c] = __float2bfloat16(B[i]);
+    if (mode == 3) {
+      for (int i = lane; i < 256; i += 32) {
+        g_ab[0][i] = __float2bfloat16(A[i]);
+        g_ab[1][i] = __float2bfloat16(B[i]);
+      }
+      __syncthreads();
+      for (int i = lane; i < 128; i += 32) {  // a pair of one row each
+        const int r = 2 * i / 16, c = 2 * i % 16;
+        cp_async_4(sa + r * kStride + c, &g_ab[0][2 * i]);
+        cp_async_4(sb + r * kStride + c, &g_ab[1][2 * i]);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      for (int i = lane; i < 256; i += 32) {
+        const int r = i / 16, c = i % 16;
+        // mode 2 keeps A as (k, row): element A[r][c] at row c, column r
+        sa[mode == 1 ? r * kStride + c : c * kStride + r] = __float2bfloat16(A[i]);
+        sb[r * kStride + c] = __float2bfloat16(B[i]);
+      }
     }
     __syncthreads();
     // matrix j = lane / 8, its row lane % 8; A's matrices in register
     // order (rows 0-7 | 8-15) x (k 0-7 | 8-15), row-half fastest
     const int j = lane / 8, r = lane % 8;
-    if (mode == 1) {
+    if (mode != 2) {
       ldmatrix_x4(a, sa + (r + 8 * (j % 2)) * kStride + 8 * (j / 2));
     } else {
       ldmatrix_x4_trans(a, sa + (r + 8 * (j / 2)) * kStride + 8 * (j % 2));

@@ -5,6 +5,7 @@
 // warp meets at its barrier, and each lane then builds its own result by
 // the PTX ISA's documented layouts (written out in the header this file
 // stands in for). cp.async is a plain copy and its wait does nothing.
+// The block's dynamic shared memory is the runtime stand-in's one buffer.
 // tests/cuda_emu/mma_check.cpp holds these against a matrix product.
 #pragma once
 #include <cstdint>
@@ -70,6 +71,9 @@ inline void ldmatrix_x4(uint32_t (&r)[4], const void* row) { emu_ldmatrix_x4(r, 
 inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) { emu_ldmatrix_x4(r, row, true); }
 
 inline void cp_async_16(void* smem, const void* gmem) { std::memcpy(smem, gmem, 16); }
+inline void cp_async_4(void* smem, const void* gmem) { std::memcpy(smem, gmem, 4); }
 inline void cp_async_commit() {}
 template <int N>
 inline void cp_async_wait() {}
+
+inline unsigned char* dynamic_smem() { return tower_smem; }

@@ -543,10 +543,12 @@ class TestCudaGroupNorm:
 class TestWindowAttention:
     """SwinIR's windowed attention kernels (``csrc/window_attention.cu``)
     against the op's plain route in float64 on the card, and SwinIR through
-    them against the CPU's plain route. Bars as
+    them against the CPU's plain route. bf16 takes the tensor-core kernels,
+    f32 the CUDA-core ones, as ``launches`` counts by design. Bars as
     ``tests/test_torch_window_attn_source.py`` holds the emulated source:
     f32 2e-5 of the largest magnitude; bf16 out one bf16 ulp at it, dqkv
-    1e-2 (rounded to bf16), dbias 2e-3 (D_i reads the rounded O)."""
+    1e-2 (rounded to bf16), dbias 2e-3 (the CUDA-core backward's D_i reads
+    the rounded O)."""
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
     @pytest.mark.parametrize("grid,heads,window,shift", [
@@ -568,7 +570,10 @@ class TestWindowAttention:
         out = wa.window_attention(x, bb, heads, window, shift, grid)
         dq, db = torch.autograd.grad(out, [x, bb], dout)
         assert wa.paths == {"cuda": 1, "cpu": 0}
-        assert wk.launches == {"forward": 1, "backward": 1}
+        design, other = ("mma", "simt") if dtype == torch.bfloat16 else ("simt", "mma")
+        assert wk.launches == {"forward": 1, "backward": 1, f"forward_{design}": 1,
+                               f"backward_{design}": 1, f"forward_{other}": 0,
+                               f"backward_{other}": 0}
         x64 = qkv.double().requires_grad_()
         b64 = bias.double().requires_grad_()
         o64 = wa.window_attention_plain(x64, b64, heads, window, shift, grid)
@@ -595,6 +600,61 @@ class TestWindowAttention:
         for a, b in zip(*runs):
             assert torch.equal(a, b)
 
+    @pytest.mark.parametrize("shift", [4, 0])
+    def test_bf16_kernels_at_the_step_shape(self, cuda_device, shift):
+        """The tensor-core kernels at SwinIR-M x4's training step (32 x 64 x
+        64 tokens, 6 heads of 30, window 8) against the plain route in
+        float64, at the emulated test's bf16 bars; two launches give the
+        same bits, and only the mma design ran."""
+        from srgan_tpu_torch.ops import window_attention as wa
+        from srgan_tpu_torch.ops.cuda import window_attention_kernel as wk
+
+        grid, heads, window = (32, 64, 64), 6, 8
+        g = torch.Generator(device=cuda_device).manual_seed(2 + shift)
+        qkv = torch.randn((32, 4096, 540), generator=g, device=cuda_device).bfloat16()
+        bias = torch.randn((heads, 64, 64), generator=g, device=cuda_device) * 0.5
+        dout = torch.randn((32, 4096, 180), generator=g, device=cuda_device).bfloat16()
+        wk.reset_launches()
+        runs = []
+        for _ in range(2):
+            out, lse = wk.window_attention_cuda(qkv, bias, heads, window, shift, grid)
+            runs.append((out, lse, *wk.window_attention_backward_cuda(
+                qkv, bias, out, lse, dout, heads, window, shift, grid)))
+        assert wk.launches == {"forward": 2, "backward": 2, "forward_mma": 2, "backward_mma": 2,
+                               "forward_simt": 0, "backward_simt": 0}
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+        out, _, dq, db = runs[0]
+        del runs
+        x64 = qkv.double().requires_grad_()
+        b64 = bias.double().requires_grad_()
+        o64 = wa.window_attention_plain(x64, b64, heads, window, shift, grid)
+        dq64, db64 = torch.autograd.grad(o64, [x64, b64], dout.double())
+        want = o64.detach().float().bfloat16().double()
+        mag = torch.maximum(want.abs(), out.double().abs()).clamp_min(2.0 ** -120)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        assert bool(((out.double() - want).abs() <= ulp + 1e-6 * float(want.abs().max())).all())
+        rel = lambda a, e: float((a.double() - e).abs().max() / e.abs().max())  # noqa: E731
+        assert rel(dq, dq64) <= 1e-2 and rel(db, db64) <= 2e-3
+
+    def test_swinir_bf16_step_takes_the_mma_kernels(self, cuda_device):
+        """A small SwinIR (2 groups of 2 layers) in bf16: one forward and
+        backward launch the tensor-core kernels once a layer each and the
+        CUDA-core kernels never."""
+        from srgan_tpu_torch.config import ModelConfig
+        from srgan_tpu_torch.models import init_generator
+        from srgan_tpu_torch.ops.cuda import window_attention_kernel as wk
+
+        cfg = ModelConfig(generator="swinir", embed_dim=36, depths=(2, 2), num_heads=(3, 3),
+                          window_size=4, num_features=16, compute_dtype="bfloat16")
+        card = init_generator(cfg, seed=0, device=cuda_device)
+        x = torch.rand(2, 12, 20, 3, generator=torch.Generator().manual_seed(0))
+        wk.reset_launches()
+        y = card(x.to(cuda_device))
+        torch.autograd.grad(y.float().square().mean(), list(card.parameters()))
+        assert wk.launches == {"forward": 4, "backward": 4, "forward_mma": 4, "backward_mma": 4,
+                               "forward_simt": 0, "backward_simt": 0}
+
     def test_swinir_on_the_card_matches_the_cpu(self, cuda_device):
         """A small SwinIR (embed 36, 2 groups of 2 layers, 3 heads of 12,
         window 4) in fp32 on a non-multiple-of-window image: the card's
@@ -612,7 +672,8 @@ class TestWindowAttention:
         wk.reset_launches()
         y_card = card(x.to(cuda_device))
         g_card = torch.autograd.grad(y_card.square().mean(), list(card.parameters()))
-        assert wk.launches == {"forward": 4, "backward": 4}
+        assert wk.launches == {"forward": 4, "backward": 4, "forward_mma": 0, "backward_mma": 0,
+                               "forward_simt": 4, "backward_simt": 4}
         y_cpu = cpu(x)
         g_cpu = torch.autograd.grad(y_cpu.square().mean(), list(cpu.parameters()))
         assert float((y_card.detach().cpu() - y_cpu).abs().max()) <= \

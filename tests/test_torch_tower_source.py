@@ -105,13 +105,16 @@ def test_unsupported_features_refused(emulated_lib):
         tk._raise_if_failed(emulated_lib, rc, "tower_forward")
 
 
-@pytest.mark.parametrize("mode", [0, 1, 2], ids=["fragments", "ldmatrix", "ldmatrix_trans_a"])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3],
+                         ids=["fragments", "ldmatrix", "ldmatrix_trans_a", "cp_async_4"])
 def test_mma_stand_in_matches_matmul(mma_lib, mode):
     """The stand-ins of ``mma_bf16_16816`` and ``ldmatrix_x4[_trans]`` on
     seeded bf16 values against A @ B in float64. The operands reach the
     fragments by the PTX ISA's layouts as ``tests/cuda_emu/mma_check.cpp``
     writes them out (mode 0 register by register, modes 1 and 2 through
-    ldmatrix as the conv and wgrad tiles load), independently of the tower
+    ldmatrix as the conv and wgrad tiles load, mode 3 through ldmatrix after
+    ``cp_async_4`` into the block's dynamic shared memory, as the window
+    attention loads), independently of the tower
     source: a layout slip in a stand-in cannot hide a matching slip in the
     kernels. The products are exact, so only the f32 accumulator rounds."""
     rng = np.random.default_rng(mode)

@@ -4,21 +4,27 @@ compiled with g++ against a CPU stand-in for the CUDA runtime
 ``_launch_*`` functions, against the op's plain route
 (``ops/window_attention.py:window_attention_plain``) in float64. This
 checks the kernels' window walk, roll, region mask, softmax, the
-recomputed backward and dBias's partials here; whether nvcc accepts the
-source, and the kernels on the card, only a chip run shows
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+recomputed backward and dBias's partials here: the CUDA-core kernels (f32)
+and the tensor-core kernels (bf16), whose ``mma.sync``, ``ldmatrix`` and
+``cp.async`` run as the warp-cooperative stand-ins of
+``tests/cuda_emu/tower_mma.cuh``. Whether nvcc accepts the source, and the
+kernels on the card, only a chip run shows (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
 
 Bars: the kernels compute in f32 and the plain route here in float64, so
 out, dqkv and dbias are held at 2e-5 of their largest magnitude (a sum of
 64 f32 products, a softmax, and dbias's sums over the windows). A bf16
 input gives a bf16 output within one bf16 ulp of the float64 result
 rounded once; its gradients within 1e-2 (dqkv, rounded to bf16) and 2e-3
-(dbias: the backward's D_i = dO_i·O_i reads the rounded O). Two launches
-give the same bits.
+(dbias; the CUDA-core backward's D_i = dO_i·O_i reads the rounded O, the
+tensor-core backward takes D_i = sum_j P_ij dP_ij in f32 and comes far
+under the bar). Two launches give the same bits.
 
 Cases: shifted and plain layers, head dims 30 (SwinIR-M's) and 12, windows
 8 and 4, one and two images, several windows a side, and more windows than
-one backward block walks (dBias over several partials).
+one backward block walks (dBias over several partials); for bf16 also an
+odd head dim and a qkv two bytes off a 4-byte boundary, which the
+tensor-core kernels copy a value at a time.
 """
 
 import numpy as np
@@ -96,12 +102,18 @@ def test_window_attn_source_matches_plain(emulated_lib, grid, heads, hd, window,
         assert torch.equal(a, b)
 
 
-def test_window_attn_source_bf16(emulated_lib):
-    """bf16 in, f32 inside, bf16 out rounded once: within one bf16 ulp of
-    the float64 result; dbias stays f32."""
-    grid, heads, hd, window, shift = (1, 16, 16), 2, 30, 8, 4
+@pytest.mark.parametrize("grid,heads,hd,window,shift", CASES,
+                         ids=[f"{'x'.join(map(str, g))}-h{h}d{d}-w{w}s{s}"
+                              for g, h, d, w, s in CASES])
+def test_window_attn_source_bf16(emulated_lib, grid, heads, hd, window, shift):
+    """bf16 in, the tensor-core kernels, f32 inside, bf16 out rounded once:
+    within one bf16 ulp of the float64 result; dbias stays f32."""
     qkv, bias, dout = _inputs(grid, heads, hd, window, torch.bfloat16, seed=1)
     out, _, dqkv, dbias = _kernels(emulated_lib, qkv, bias, dout, heads, window, shift, grid)
+    _hold_bf16(qkv, bias, dout, heads, window, shift, grid, out, dqkv, dbias)
+
+
+def _hold_bf16(qkv, bias, dout, heads, window, shift, grid, out, dqkv, dbias):
     out_p, dqkv_p, dbias_p = _plain64(qkv, bias, dout, heads, window, shift, grid)
     assert out.dtype == dqkv.dtype == torch.bfloat16 and dbias.dtype == torch.float32
     want = out_p.float().to(torch.bfloat16).double()
@@ -109,9 +121,50 @@ def test_window_attn_source_bf16(emulated_lib):
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     assert bool(((out.double() - want).abs() <= ulp + 1e-6 * float(want.abs().max())).all())
     _close(dqkv, dqkv_p, 1e-2)  # each of dq, dk, dv rounded once to bf16
-    # D_i = dO_i·O_i reads the bf16-rounded O (as flash attention's backward
-    # does), a relative error of ~2^-9 in every dS of the row
+    # D_i = dO_i·O_i reads the bf16-rounded O in the CUDA-core backward (as
+    # flash attention's backward does), a relative error of ~2^-9 in every
+    # dS of the row
     _close(dbias, dbias_p, 2e-3)
+
+
+def test_window_attn_source_bf16_dbias_over_groups(emulated_lib):
+    """The tensor-core backward over more windows than a block walks (8):
+    dBias is the sum of several blocks' partials, in a fixed order, and two
+    launches give the same bits."""
+    grid, heads, hd, window, shift = (3, 8, 16), 2, 12, 4, 2  # 24 windows, 3 groups
+    assert emulated_lib.window_attn_groups(*grid, window) == 3
+    qkv, bias, dout = _inputs(grid, heads, hd, window, torch.bfloat16, seed=3)
+    out, lse, dqkv, dbias = _kernels(emulated_lib, qkv, bias, dout, heads, window, shift, grid)
+    _hold_bf16(qkv, bias, dout, heads, window, shift, grid, out, dqkv, dbias)
+    again = _kernels(emulated_lib, qkv, bias, dout, heads, window, shift, grid)
+    for a, b in zip((out, lse, dqkv, dbias), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hd,offset", [(9, 0), (12, 1)],
+                         ids=["odd-head-dim", "qkv-off-by-2-bytes"])
+def test_window_attn_source_bf16_copies_a_value_at_a_time(emulated_lib, hd, offset):
+    """Where a head's values do not pair into 4-byte words (an odd head dim,
+    or a qkv view two bytes off a 4-byte boundary), the tensor-core kernels
+    copy and store them one at a time, with the same results."""
+    grid, heads, window, shift = (1, 8, 12), 2, 4, 2
+    qkv, bias, dout = _inputs(grid, heads, hd, window, torch.bfloat16, seed=4)
+    if offset:
+        storage = torch.empty(qkv.numel() + offset, dtype=qkv.dtype)
+        storage[offset:] = qkv.flatten()
+        qkv = storage[offset:].view(qkv.shape)
+        assert qkv.data_ptr() % 4 == 2 and qkv.is_contiguous()
+    out, _, dqkv, dbias = _kernels(emulated_lib, qkv, bias, dout, heads, window, shift, grid)
+    _hold_bf16(qkv, bias, dout, heads, window, shift, grid, out, dqkv, dbias)
+
+
+def test_window_attn_designs_follow_the_dtype():
+    """bf16 takes the tensor-core kernels and f32 the CUDA-core ones, each
+    counted under its design beside the totals."""
+    assert wk.DESIGNS == {torch.bfloat16: "mma", torch.float32: "simt"}
+    assert set(wk.DTYPE_CODES) == set(wk.DESIGNS) and set(wk.KERNELS_BY_DESIGN) == {"mma", "simt"}
+    assert set(wk.launches) == {"forward", "backward", "forward_mma", "backward_mma",
+                                "forward_simt", "backward_simt"}
 
 
 def test_window_attn_source_dbias_over_groups(emulated_lib):
@@ -147,7 +200,8 @@ def test_kernel_names_stay_out_of_every_group(name):
     and ``window_attn_ms.train`` reads them by their prefix."""
     from h100bench.groups import group_of
 
-    printed = [f"void (anonymous namespace)::{name}<{t}>(...)" for t in ("float", "__nv_bfloat16")]
+    printed = [f"(anonymous namespace)::{name}({t} const*, ...)"
+               for t in ("float", "__nv_bfloat16")]
     for full in (name, *printed):
         assert full.startswith("window_attn_") or "::window_attn_" in full
         assert group_of(full) == "other"
