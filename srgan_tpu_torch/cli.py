@@ -5,9 +5,10 @@ plus ``--device`` on every subcommand (default ``cuda``; ``cpu`` runs on
 the CPU), the counterpart of ``JAX_PLATFORMS``.
 
 ``train``: ``--gan`` trains with the discriminator and ``--num-generators
-N`` trains a pool of N generators (the stacked pool's scan executor when
-N > 1); ``--perceptual WEIGHT`` adds the perceptual term, its features from
-``--perceptual-encoder`` (a trained encoder) or VGG19 (``--vgg-weights``).
+N`` trains a pool of N generators (the scan executor when N > 1, or
+``--pool-exec vmap``); ``--perceptual WEIGHT`` adds the perceptual term,
+its features from ``--perceptual-encoder`` (a trained encoder) or VGG19
+(``--vgg-weights``).
 ``train-encoder`` trains that encoder and prints one JSON line. ``eval``
 scores a paired LR/HR set (``eval/evaluation.py``; ``--perceptual-metric``
 adds the encoder distance), ``upscale`` one image (``--tile`` for the tiled
@@ -106,7 +107,7 @@ def _add_train(sub):
                    help="auto-calibration fraction for the gate threshold "
                         "(only read while --starting-gan-loss is unset)")
     p.add_argument("--pool-exec", choices=("scan", "vmap"), default="scan",
-                   help="stacked-pool executor (pools of more than one "
+                   help="pool executor (pools of more than one "
                         "generator): scan, the member loop (one member's "
                         "activations alive); vmap, all members in one "
                         "region (N x activation memory: needs --remat + "

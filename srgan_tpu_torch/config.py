@@ -181,11 +181,8 @@ class PoolConfig:
     # the reference ships sorts descending (``utils.py:107``). We follow the
     # README (deviation recorded in SURVEY.md §7(5)).
     sort_ascending: bool = True
-    # Execute the pool as ONE vmapped train state with a leading pool axis
-    # (one fused step updates all members — the TPU-idiomatic layout,
-    # SURVEY.md §2 EP row) instead of sequential per-member steps.
-    stacked: bool = True
-    # How the stacked step executes the members (training/stacked_pool.py).
+    # How a pool of more than one generator executes its members
+    # (training/stacked_pool.py).
     # "scan" (default): a loop over the members, each one's gradient and
     # Adam step in turn, one member's activations alive at a time. "vmap":
     # all members in one torch.func.vmap region, N x activations alive at

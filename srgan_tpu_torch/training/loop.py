@@ -3,16 +3,17 @@
 and the functional ``train``, for one generator or a pool of them, in the
 pixel phase or the GAN phase.
 
-The ``Trainer`` holds a ``GeneratorPool`` of N members, as the JAX one
-does; the checkpoints and the epoch record are built on it. A pool of more
-than one member runs the stacked pool (``training/stacked_pool.py``, the
-scan executor, or with ``member_exec="vmap"`` the vmap executor, remat
-models included) unless ``PoolConfig.stacked`` is off, which runs the member
-list; the stacked state is mirrored back into the list pool before every
-snapshot. With ``use_gan`` the Trainer also holds the shared
-discriminator and its ``TrainState`` (Adam, no EMA). With
-``perceptual_weight > 0`` it holds the frozen perceptual extractor, which
-every generator step is given: the trained contrastive encoder of
+The ``Trainer`` holds one ``GeneratorPool`` of N members, as the JAX one
+does: its scheduler draws every batch's GAN mask, and the checkpoints and
+the epoch record are built on it. One epoch loop runs every N. A pool of
+more than one member steps through an executor of
+``training/stacked_pool.py`` (the scan executor, or with
+``member_exec="vmap"`` the vmap executor, remat models included); one
+generator through the single-member steps of ``training/steps.py`` (the
+fused ``gan_train_step`` where it draws GAN). With ``use_gan`` the Trainer
+also holds the shared discriminator and its ``TrainState`` (Adam, no EMA).
+With ``perceptual_weight > 0`` it holds the frozen perceptual extractor,
+which every generator step is given: the trained contrastive encoder of
 ``perceptual_encoder_npz``, else VGG19 at ``vgg_layers`` (weights from
 ``vgg_weights_npz``, the torchvision cache, or random with a warning).
 
@@ -70,9 +71,8 @@ from srgan_tpu_torch.models.vgg import init_vgg_extractor
 from srgan_tpu_torch.ops.resize import resize_bilinear
 from srgan_tpu_torch.parallel import mesh
 from srgan_tpu_torch.training import checkpoint as ckpt
-from srgan_tpu_torch.training.pool import GeneratorPool, PoolMember
+from srgan_tpu_torch.training.pool import GeneratorPool
 from srgan_tpu_torch.training.stacked_pool import (
-    StackedGeneratorPool,
     scanned_pool_gan_step,
     scanned_pool_step,
     stacked_pool_gan_step,
@@ -83,7 +83,6 @@ from srgan_tpu_torch.training.steps import (
     discriminator_step_on_sr,
     eval_step,
     gan_train_step,
-    generator_gan_step,
     generator_pixel_step,
     infer_step,
 )
@@ -124,8 +123,8 @@ def _batches(batches, epoch: int):
 
 
 def _packed_names(n_members: int, has_d: bool) -> list:
-    """The names of a stacked batch's packed values: (5, N) in PACKED_KEYS
-    order, then d_loss."""
+    """The names of a batch's packed values: (5, N) in PACKED_KEYS order,
+    then d_loss."""
     names = [f"{k}[{i}]" for k in PACKED_KEYS for i in range(n_members)]
     return names + ["d_loss"] if has_d else names
 
@@ -153,14 +152,12 @@ class Trainer:
                 "weights"
             )
         n = cfg.pool.num_generators
-        # pools of more than one member run the stacked pool by default
-        self.use_stacked = cfg.pool.stacked and n > 1
-        if self.use_stacked and cfg.pool.member_exec not in ("vmap", "scan"):
+        if n > 1 and cfg.pool.member_exec not in ("vmap", "scan"):
             raise ValueError(
                 f"PoolConfig.member_exec must be 'vmap' or 'scan', got "
                 f"{cfg.pool.member_exec!r}"
             )
-        if (self.use_stacked and cfg.pool.member_exec == "vmap"
+        if (n > 1 and cfg.pool.member_exec == "vmap"
                 and cfg.model.generator != "srresnet"):
             # the vmap executor's contract (grouped convs, RematBlock's vmap
             # rule) is SRResNet's; the scan executor runs any generator
@@ -168,7 +165,7 @@ class Trainer:
                 f"PoolConfig.member_exec 'vmap' (--pool-exec vmap) runs SRResNet pools "
                 f"only, not {cfg.model.generator!r}: use the scan executor"
             )
-        # the stacked pool's executor: the member loop, or the vmap region
+        # a pool's executor: the member loop, or the vmap region
         self.pool_steps = (
             (stacked_pool_step, stacked_pool_gan_step)
             if cfg.pool.member_exec == "vmap"
@@ -184,17 +181,17 @@ class Trainer:
         make_deterministic()
         # member i's weights from (seed, i), D's from (seed, N + 1), as JAX
         # splits its key into N + 2 and gives D the last
-        members = []
+        states = []
         for i in range(n):
             model = init_generator(cfg.model, seed=_mix(cfg.train.seed, i),
                                    device=self.device)
-            members.append(PoolMember(state=TrainState(
+            states.append(TrainState(
                 model,
                 b1=cfg.train.adam_b1,
                 b2=cfg.train.adam_b2,
                 ema_decay=cfg.train.ema_decay,
-            )))
-        self.pool = GeneratorPool(members, cfg.pool, seed=cfg.train.seed)
+            ))
+        self.pool = GeneratorPool(states, cfg.pool, seed=cfg.train.seed)
         self.d_state: Optional[TrainState] = None
         if cfg.train.use_gan:
             d_model = init_discriminator(
@@ -217,11 +214,6 @@ class Trainer:
                     _mix(cfg.train.seed, n), layers=tuple(cfg.train.vgg_layers),
                     weights_npz=cfg.train.vgg_weights_npz, device=self.device)
         self._attach_group()
-        self.spool: Optional[StackedGeneratorPool] = None
-        if self.use_stacked:
-            self.spool = StackedGeneratorPool.create(
-                [m.state for m in members], cfg.pool, seed=cfg.train.seed
-            )
         self._best_psnr = float("-inf")  # keep_best watermark
         # Preemption flags: the SIGTERM handler installed by train() sets
         # _stop_requested; train_epoch then breaks at the next batch
@@ -234,6 +226,12 @@ class Trainer:
         self.history = {"epochs": [], "psnr": [], "ssim": []}
 
     # ------------------------------------------------------------------ #
+
+    @property
+    def spool(self) -> Optional[GeneratorPool]:
+        """The pool where it has more than one member, the one that steps
+        through ``pool_steps``; None for one generator."""
+        return self.pool if len(self.pool.members) > 1 else None
 
     def _log_prefix(self) -> str:
         """Metrics-JSONL prefix: plain on rank 0, rank-suffixed elsewhere
@@ -259,43 +257,8 @@ class Trainer:
         """The current best generator. ``serve=True`` prefers the EMA shadow
         when one is trained (validation and scoring read the weights a user
         would serve)."""
-        if self.spool is not None:
-            state = self.spool.state[0]
-        else:
-            state = self.pool.leader.state
+        state = self.pool.leader.state
         return state.serve_model if serve else state.model
-
-    def _sync_pool_from_stacked(self) -> None:
-        """Mirror the stacked pool into the member list (the checkpoint
-        format): its states in pool order and its bookkeeping."""
-        if self.spool is None:
-            return
-        for m, s, meta in zip(self.pool.members, self.spool.state,
-                              self.spool.snapshot()):
-            m.state = s
-            m.running_loss = meta["running_loss"]
-            m.pre_loss = meta["pre_loss"]
-            m.gan_updates = meta["gan_updates"]
-            m.pixel_updates = meta["pixel_updates"]
-        self.pool.gan_threshold = self.spool.gan_threshold
-
-    def _rebuild_stacked_from_pool(self, start_epoch: int = 0) -> None:
-        """Rebuild the stacked pool after a restore, with all of the pool's
-        bookkeeping, and the scheduler reseeded from (seed, start_epoch) so
-        that its draws do not replay the run's start."""
-        if self.spool is None:
-            return
-        members = self.pool.members
-        self.spool = StackedGeneratorPool.create(
-            [m.state for m in members], self.cfg.pool,
-            seed=(self.cfg.train.seed, start_epoch),
-        )
-        self.spool.running_loss = np.asarray([m.running_loss for m in members])
-        self.spool.pre_loss = np.asarray([m.pre_loss for m in members])
-        self.spool.gan_updates = np.asarray([m.gan_updates for m in members], np.int64)
-        self.spool.pixel_updates = np.asarray([m.pixel_updates for m in members],
-                                              np.int64)
-        self.spool.gan_threshold = self.pool.gan_threshold
 
     def _should_stop(self, batch_idx: int) -> bool:
         """Batch-boundary preemption check. One process reads its own flag
@@ -325,18 +288,23 @@ class Trainer:
             return batch_idx % len(self.pool.members)
         return 0
 
-    def _train_epoch_stacked(self, pipeline: TrainPipeline, epoch: int) -> dict:
-        """One epoch of the stacked pool: every member updates on every
-        batch through the executor ``PoolConfig.member_exec`` names (the
-        member loop, or all members in one vmapped region), and with a
-        discriminator, the one D update of the batch follows."""
+    def _epoch_average(self, sums: dict, n_batches: int) -> dict:
+        avg = {k: (v / max(1, n_batches)) for k, v in sums.items()}
+        avg["images_per_sec"] = self.throughput.images_per_sec()
+        avg["n_batches"] = n_batches
+        return avg
+
+    def train_epoch(self, pipeline: TrainPipeline, epoch: int) -> dict:
+        """One epoch: on every batch the pool draws its GAN mask, every
+        member updates (with a discriminator, the one D update of the batch
+        follows), and batch k−1's losses are drained while batch k is
+        queued."""
         cfg = self.cfg
-        pool_step, pool_gan_step = self.pool_steps
         g_lr = epoch_lr(cfg.train, cfg.train.lr_generator, epoch)
         d_lr = epoch_lr(cfg.train, cfg.train.lr_discriminator, epoch)
         gen = _epoch_generator(pipeline.device, cfg.train.seed, epoch)
-        use_gan = self.d_state is not None
-        names = _packed_names(self.spool.n, use_gan)
+        has_d = self.d_state is not None
+        names = _packed_names(len(self.pool.members), has_d)
         px = dict(extractor=self.extractor, p_weight=cfg.train.perceptual_weight)
 
         sums = dict.fromkeys(_SUM_KEYS, 0.0)
@@ -345,107 +313,21 @@ class Trainer:
         progress = ProgressLine(cfg.train.progress, total=pipeline.steps_per_epoch())
 
         def drain(read, batch_idx, images):
-            # one host fetch a batch: (5, N) losses, + d_loss in the GAN phase
+            # one host fetch a batch: (5, N) losses, + d_loss with a D
             with span("loop.drain", epoch=epoch, step=batch_idx):
                 vals = read.result().tolist()
                 self._check_finite(vals, names, epoch, batch_idx)
-                if use_gan:
+                if has_d:
                     sums["d_loss"] += vals.pop()
                 g, com, tv, g_d, p = np.asarray(vals).reshape(5, -1)
-                self.spool.record_losses(com)
+                # the ordering signal is the pixel loss only
+                self.pool.record_losses(com)
                 for k, v in zip(PACKED_KEYS, (g, com, tv, g_d, p)):
                     sums[k] += float(v[0])  # the epoch record logs member 0
                 self.throughput.add(images)
                 progress.update(
                     epoch, batch_idx + 1,
                     {"g_loss": float(g[0]),
-                     "d_loss": sums["d_loss"] / (batch_idx + 1) if use_gan else None},
-                    self.throughput.images_per_sec(),
-                )
-
-        pending: Optional[tuple] = None
-        for hr, lr_imgs in _batches(pipeline.epoch(epoch, gen), epoch):
-            with tags(epoch=epoch, step=n_batches):
-                if self._should_stop(n_batches):
-                    self._epoch_interrupted = True
-                    break
-                # batch k's mask is drawn before batch k−1's losses are
-                # drained: the gate reads losses through batch k−2, as in JAX
-                gan_mask = self.spool.sample_gan_mask(use_gan)
-                if use_gan:
-                    self.spool.state, self.d_state, metrics = pool_gan_step(
-                        self.spool.state, self.d_state, hr, lr_imgs, gan_mask,
-                        g_lr, d_lr, d_target_idx=self._d_target(n_batches), **px,
-                    )
-                else:
-                    self.spool.state, metrics = pool_step(
-                        self.spool.state, hr, lr_imgs, g_lr, **px,
-                    )
-                # batch k's losses start for the host now, behind its step
-                read = HostRead(metrics["packed"].reshape(-1), "train_epoch.drain")
-                if pending is not None:
-                    drain(*pending)
-                pending = (read, n_batches, hr.shape[0])
-                n_batches += 1
-        if pending is not None:
-            drain(*pending)
-        progress.close()
-        return self._epoch_average(sums, n_batches)
-
-    def _epoch_average(self, sums: dict, n_batches: int) -> dict:
-        avg = {k: (v / max(1, n_batches)) for k, v in sums.items()}
-        avg["images_per_sec"] = self.throughput.images_per_sec()
-        avg["n_batches"] = n_batches
-        return avg
-
-    def train_epoch(self, pipeline: TrainPipeline, epoch: int) -> dict:
-        """One epoch. The member list: each member in pool order takes a
-        pixel or a GAN update (one ``rng.random()`` a member with a
-        discriminator); the d-target member's pre-update SR then feeds the
-        shared D update. A one-member pool whose member chose GAN runs the
-        fused ``gan_train_step``, its ``d_loss`` in its packed 6-vector."""
-        if self.spool is not None:
-            return self._train_epoch_stacked(pipeline, epoch)
-        cfg = self.cfg
-        g_lr = epoch_lr(cfg.train, cfg.train.lr_generator, epoch)
-        d_lr = epoch_lr(cfg.train, cfg.train.lr_discriminator, epoch)
-        gen = _epoch_generator(pipeline.device, cfg.train.seed, epoch)
-        members = self.pool.members
-        has_d = self.d_state is not None
-        px = dict(extractor=self.extractor, p_weight=cfg.train.perceptual_weight)
-
-        sums = dict.fromkeys(_SUM_KEYS, 0.0)
-        n_batches = 0
-        self.throughput.begin()
-        progress = ProgressLine(cfg.train.progress, total=pipeline.steps_per_epoch())
-
-        def drain(read, layout, batch_idx, images):
-            # one host fetch a batch: every member's packed vector, then a
-            # separate D update's loss
-            with span("loop.drain", epoch=epoch, step=batch_idx):
-                vals = read.result().tolist()
-                names = [f"{k}[{i}]" for i, _, size in layout
-                         for k in (*PACKED_KEYS, "d_loss")[:size]]
-                if len(names) < len(vals):
-                    names.append("d_loss")
-                self._check_finite(vals, names, epoch, batch_idx)
-                at = 0
-                for i, used_gan, size in layout:
-                    v = vals[at:at + size]
-                    at += size
-                    if size == 6:
-                        sums["d_loss"] += v[5]
-                    # the ordering signal is the pixel loss only
-                    self.pool.record_loss(i, v[1], used_gan=used_gan)
-                    if i == 0:
-                        for k, x in zip(PACKED_KEYS, v):
-                            sums[k] += x
-                if at < len(vals):
-                    sums["d_loss"] += vals[at]
-                self.throughput.add(images)
-                progress.update(
-                    epoch, batch_idx + 1,
-                    {"g_loss": vals[0],
                      "d_loss": sums["d_loss"] / (batch_idx + 1) if has_d else None},
                     self.throughput.images_per_sec(),
                 )
@@ -458,54 +340,55 @@ class Trainer:
                     # step; train() snapshots and --resume restarts this epoch
                     self._epoch_interrupted = True
                     break
-                d_idx = self._d_target(n_batches) if has_d else None
-                packed, layout = [], []
-                sr_for_d, d_in_packed = None, False
-                for i, member in enumerate(members):
-                    used_gan = has_d and self.pool.choose_gan(i)
-                    want_sr = i == d_idx
-                    with span("step.member", member=i, gan=bool(used_gan)):
-                        if used_gan and want_sr and len(members) == 1:
-                            # one member: its GAN update and the D update
-                            # fuse; with more, members after d_idx would read
-                            # the updated D
-                            member.state, self.d_state, metrics = gan_train_step(
-                                member.state, self.d_state, hr, lr_imgs, g_lr, d_lr,
-                                **px,
-                            )
-                            d_in_packed = True
-                        elif used_gan:
-                            member.state, metrics = generator_gan_step(
-                                member.state, self.d_state.model, hr, lr_imgs, g_lr,
-                                return_sr=want_sr, **px,
-                            )
-                        else:
-                            member.state, metrics = generator_pixel_step(
-                                member.state, hr, lr_imgs, g_lr, return_sr=want_sr,
-                                **px,
-                            )
-                    if want_sr and "sr" in metrics:
-                        sr_for_d = metrics.pop("sr")
-                    packed.append(metrics["packed"])
-                    layout.append((i, used_gan, metrics["packed"].numel()))
-                if has_d and not d_in_packed:
-                    # the shared D, after every member read it
-                    with span("step.d"):
-                        self.d_state, d_metrics = discriminator_step_on_sr(
-                            self.d_state, hr, sr_for_d, d_lr
-                        )
-                    packed.append(d_metrics["d_loss"].reshape(1))
-                # batch k is queued before batch k−1's scalars are fetched;
-                # its own start for the host now, behind its step
-                read = HostRead(torch.cat(packed), "train_epoch.drain")
+                # batch k's mask is drawn before batch k−1's losses are
+                # drained: the gate reads losses through batch k−2, as in JAX
+                gan_mask = self.pool.sample_gan_mask(has_d)
+                packed = self._step(hr, lr_imgs, gan_mask, g_lr, d_lr, n_batches, px)
+                # batch k's losses start for the host now, behind its step
+                read = HostRead(packed, "train_epoch.drain")
                 if pending is not None:
                     drain(*pending)
-                pending = (read, layout, n_batches, hr.shape[0])
+                pending = (read, n_batches, hr.shape[0])
                 n_batches += 1
         if pending is not None:
             drain(*pending)
         progress.close()
         return self._epoch_average(sums, n_batches)
+
+    def _step(self, hr, lr_imgs, gan_mask, g_lr, d_lr, batch_idx, px) -> torch.Tensor:
+        """One batch's update of every member, and of D where there is one.
+        Returns the flat packed losses: (5, N) in PACKED_KEYS order, then
+        d_loss."""
+        if self.spool is not None:
+            pool_step, pool_gan_step = self.pool_steps
+            if self.d_state is None:
+                _, metrics = pool_step(self.pool.state, hr, lr_imgs, g_lr, **px)
+            else:
+                _, self.d_state, metrics = pool_gan_step(
+                    self.pool.state, self.d_state, hr, lr_imgs, gan_mask, g_lr, d_lr,
+                    d_target_idx=self._d_target(batch_idx), **px,
+                )
+            return metrics["packed"].reshape(-1)
+        # one generator: its GAN update and the D update fuse
+        member = self.pool.leader
+        used_gan = bool(gan_mask[0])
+        with span("step.member", member=0, gan=used_gan):
+            if used_gan:
+                member.state, self.d_state, metrics = gan_train_step(
+                    member.state, self.d_state, hr, lr_imgs, g_lr, d_lr, **px,
+                )
+            else:
+                member.state, metrics = generator_pixel_step(
+                    member.state, hr, lr_imgs, g_lr,
+                    return_sr=self.d_state is not None, **px,
+                )
+        if self.d_state is None or used_gan:
+            return metrics["packed"]
+        with span("step.d"):
+            self.d_state, d_metrics = discriminator_step_on_sr(
+                self.d_state, hr, metrics.pop("sr"), d_lr
+            )
+        return torch.cat([metrics["packed"], d_metrics["d_loss"].reshape(1)])
 
     # ------------------------------------------------------------------ #
 
@@ -555,7 +438,6 @@ class Trainer:
         """Snapshot the run. Rank 0 alone writes into the shared results
         dir; a blocking save ends in a barrier, so that no rank reads or
         exits before the snapshot is committed."""
-        self._sync_pool_from_stacked()
         if self._rank == 0:
             ckpt.save_checkpoint(
                 self.cfg.train.results_dir, prefix, pool=self.pool,
@@ -590,7 +472,6 @@ class Trainer:
                 d_state=self.d_state,
             )
             self.pool.reseed((cfg.train.seed, saved_epoch))
-            self._rebuild_stacked_from_pool(saved_epoch)
             self.cfg = cfg = cfg.replace(train=ckpt.finetune_entry(cfg.train))
             self.logger = MetricsLogger(cfg.train.results_dir, self._log_prefix())
         elif resume:
@@ -599,7 +480,6 @@ class Trainer:
                 d_state=self.d_state,
             )
             self.pool.reseed((cfg.train.seed, start_epoch))
-            self._rebuild_stacked_from_pool(start_epoch)
             # keep the earlier epochs' records and recover the keep_best
             # watermark from them; NaN psnr records (a diverged epoch, an
             # empty validation set) must not poison it
@@ -677,9 +557,8 @@ class Trainer:
                             "interrupted": True,
                             "interrupted_after_batches": train_metrics["n_batches"],
                         }
-                    active_pool = self.spool if self.spool is not None else self.pool
                     with span("loop.end_epoch"):
-                        active_pool.end_epoch()
+                        self.pool.end_epoch()
 
                     if (cfg.train.checkpoint_every
                             and (epoch + 1) % cfg.train.checkpoint_every == 0):
@@ -710,12 +589,12 @@ class Trainer:
                             "psnr": psnr,
                             "ssim": ssim,
                             "wall_s": time.perf_counter() - t0,
-                            "pool": active_pool.snapshot(),
+                            "pool": self.pool.snapshot(),
                             **train_metrics,
                         }
-                        if active_pool.gan_threshold is not None:
+                        if self.pool.gan_threshold is not None:
                             # the gate's (possibly auto-calibrated) threshold
-                            record["gan_threshold"] = active_pool.gan_threshold
+                            record["gan_threshold"] = self.pool.gan_threshold
                         if cfg.train.reduce_metrics:
                             record = mesh.reduce_metrics(record, self.group)
                         self.logger.log(record)

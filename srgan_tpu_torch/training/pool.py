@@ -7,10 +7,17 @@
   - at the end of an epoch, re-sort by loss, then weak learns from strong by
     ``param = α·strong + (1−α)·weak``.
 
-The bookkeeping is plain numpy and Python floats, as in JAX; the parameters
-are the members' ``TrainState`` tensors, and the mutual-learning lerp runs in
-place on them. The port's ``Trainer`` holds a one-member pool (pools of more
-members are ROADMAP.md queue 1, item 7).
+One class schedules every pool, one member or many, with the batch API of
+the JAX scheduler of the stacked state (``srgan_tpu/training/
+stacked_pool.py``): one ``rng.random(n)`` a batch for the GAN mask (the same
+doubles as n successive ``rng.random()`` calls of JAX's member list), the
+EMA over the batch's (N,) pixel losses, and ``np.argsort`` at the epoch
+end. The bookkeeping lives in the members
+(``PoolMember``, the checkpoint's layout); ``state``, ``running_loss`` and
+``gan_updates`` are read-only views of it in pool order. The parameters are
+the members' ``TrainState`` tensors, which the executors of
+``training/stacked_pool.py`` update, and the mutual-learning lerp runs in
+place on them.
 """
 
 from __future__ import annotations
@@ -19,21 +26,14 @@ import dataclasses
 from typing import List, Sequence
 
 import numpy as np
-import torch
 
 from srgan_tpu_torch.config import PoolConfig
+from srgan_tpu_torch.training.stacked_pool import (
+    mutual_learning_lerp,
+    permute_members,
+    stack_states,
+)
 from srgan_tpu_torch.training.train_state import TrainState
-
-
-@torch.no_grad()
-def interpolate_params(params: Sequence[torch.Tensor],
-                       target_params: Sequence[torch.Tensor],
-                       alpha: float = 0.2) -> None:
-    """``param = alpha*target + (1-alpha)*param`` in place over two lists of
-    tensors (reference ``interpolate_models``, ``src/utils.py:113-115``)."""
-    params = list(params)
-    torch._foreach_mul_(params, 1.0 - alpha)
-    torch._foreach_add_(params, list(target_params), alpha=alpha)
 
 
 def sort_lists_in_same_order(*lists, reverse: bool = True):
@@ -56,10 +56,12 @@ class PoolMember:
 
 
 class GeneratorPool:
-    """Ordered pool of generator train states with the README scheduler."""
+    """Ordered pool of generator train states with the README scheduler.
+    The states share member 0's EMA decay (:func:`stack_states`)."""
 
-    def __init__(self, members: Sequence[PoolMember], cfg: PoolConfig, seed=0):
-        self.members: List[PoolMember] = list(members)
+    def __init__(self, states: Sequence[TrainState], cfg: PoolConfig, seed=0):
+        self.members: List[PoolMember] = [PoolMember(state=s)
+                                          for s in stack_states(states)]
         self.cfg = cfg
         self._rng = np.random.default_rng(seed)
         # The two-regime gate threshold: the configured value, or None =
@@ -72,42 +74,71 @@ class GeneratorPool:
         """Generator 0, the "main information generator" (``readme.md:7``)."""
         return self.members[0]
 
-    def min_loss(self) -> float:
-        return min(m.running_loss for m in self.members)
+    @property
+    def state(self) -> List[TrainState]:
+        """The members' states in pool order, what the executors step."""
+        return [m.state for m in self.members]
 
-    def gan_probability(self, index: int) -> float:
-        """P(GAN update) for member ``index`` this batch: the two-regime gate
-        of ``readme.md:10`` with PoolConfig's probabilities, modulated by
-        the opt-in pre_loss gate."""
-        m = self.members[index]
-        if not np.isfinite(m.running_loss):
-            return 0.0  # no signal yet: pixel phase
+    @property
+    def running_loss(self) -> np.ndarray:
+        return np.array([m.running_loss for m in self.members])
+
+    @property
+    def gan_updates(self) -> np.ndarray:
+        return np.array([m.gan_updates for m in self.members], np.int64)
+
+    def gan_probabilities(self) -> np.ndarray:
+        """Per-member P(GAN update) this batch: the two-regime gate of
+        ``readme.md:10`` with PoolConfig's probabilities, modulated by the
+        opt-in pre_loss gate (``pre_loss_boost`` where the loss improved
+        since the last epoch end, ``pre_loss_damp`` where it regressed)."""
+        loss = self.running_loss
+        p = np.zeros(len(loss))
+        finite = np.isfinite(loss)  # a member with no signal yet: pixel
+        if not finite.any():
+            return p
+        min_loss = loss[finite].min()
         thr = (
             self.gan_threshold
             if self.gan_threshold is not None
             else float("-inf")  # auto, before calibration: above-regime
         )
-        if m.running_loss > thr:
-            p = self.cfg.p_gan_above
-        elif index == 0:
-            p = self.cfg.p_gan_leader
-        elif m.running_loss > self.min_loss():
-            p = self.cfg.p_gan_follower
-        else:
-            p = self.cfg.p_gan_leader
-        return min(1.0, p * self._pre_loss_factor(m.running_loss, m.pre_loss))
+        for i in np.flatnonzero(finite):
+            if loss[i] > thr:
+                p[i] = self.cfg.p_gan_above
+            elif i == 0 or loss[i] <= min_loss:
+                p[i] = self.cfg.p_gan_leader
+            else:
+                p[i] = self.cfg.p_gan_follower
+        if self.cfg.pre_loss_gate:
+            pre = np.array([m.pre_loss for m in self.members])
+            factor = np.where(loss < pre, self.cfg.pre_loss_boost,
+                              self.cfg.pre_loss_damp)
+            p = np.where(np.isfinite(pre), np.minimum(1.0, p * factor), p)
+        return p
 
-    def _pre_loss_factor(self, running_loss: float, pre_loss: float) -> float:
-        """``pre_loss_boost`` when the loss improved since the last epoch
-        end, ``pre_loss_damp`` when it regressed; 1.0 with the gate off or
-        before the first epoch end."""
-        if not self.cfg.pre_loss_gate or not np.isfinite(pre_loss):
-            return 1.0
-        return (
-            self.cfg.pre_loss_boost
-            if running_loss < pre_loss
-            else self.cfg.pre_loss_damp
-        )
+    def sample_gan_mask(self, use_gan: bool) -> np.ndarray:
+        """The batch's (N,) GAN mask, one ``rng.random(n)`` a batch with a
+        discriminator (all zeros without one), each member's update counted
+        as drawn."""
+        n = len(self.members)
+        mask = np.zeros(n, np.float32)
+        if use_gan:
+            mask = (self._rng.random(n) < self.gan_probabilities()).astype(np.float32)
+        for m, gan in zip(self.members, mask):
+            if gan:
+                m.gan_updates += 1
+            else:
+                m.pixel_updates += 1
+        return mask
+
+    def record_losses(self, com_losses) -> None:
+        """The EMA of each member's pixel loss, the ordering signal; a
+        member's first loss starts it."""
+        e = self.cfg.loss_ema
+        for m, x in zip(self.members, np.asarray(com_losses, np.float64).tolist()):
+            m.running_loss = (x if not np.isfinite(m.running_loss)
+                              else e * m.running_loss + (1 - e) * x)
 
     def reseed(self, seed) -> None:
         """Re-key the scheduler RNG (after a restore, with the resume epoch
@@ -115,51 +146,29 @@ class GeneratorPool:
         start)."""
         self._rng = np.random.default_rng(seed)
 
-    def choose_gan(self, index: int) -> bool:
-        """Host-side Bernoulli draw selecting the GAN step for this batch."""
-        return bool(self._rng.random() < self.gan_probability(index))
-
-    def record_loss(self, index: int, pixel_loss: float, used_gan: bool):
-        m = self.members[index]
-        if not np.isfinite(m.running_loss):
-            m.running_loss = float(pixel_loss)
-        else:
-            e = self.cfg.loss_ema
-            m.running_loss = e * m.running_loss + (1.0 - e) * float(pixel_loss)
-        if used_gan:
-            m.gan_updates += 1
-        else:
-            m.pixel_updates += 1
-
     def end_epoch(self):
-        """Epoch-end re-sort (``readme.md:8``) and weak-learns-from-strong
-        mutual learning (``readme.md:13``). The first epoch end calibrates
-        an auto gate threshold to ``gate_auto_frac`` x the median running
-        loss."""
-        self.members.sort(
-            key=lambda m: m.running_loss, reverse=not self.cfg.sort_ascending
-        )
+        """Epoch-end re-sort (``readme.md:8``, ``np.argsort``, reversed when
+        descending) and weak-learns-from-strong mutual learning
+        (``readme.md:13``) of the params and the EMA shadows. The first
+        epoch end calibrates an auto gate threshold to ``gate_auto_frac`` x
+        the median running loss."""
+        order = np.argsort(self.running_loss)
+        if not self.cfg.sort_ascending:
+            order = order[::-1]
+        self.members = permute_members(self.members, order)
+        loss = self.running_loss
         if self.cfg.starting_gan_loss is None and self.gan_threshold is None:
-            finite = [
-                m.running_loss
-                for m in self.members
-                if np.isfinite(m.running_loss)
-            ]
-            if finite:
-                self.gan_threshold = float(
-                    self.cfg.gate_auto_frac * np.median(finite)
-                )
+            finite = loss[np.isfinite(loss)]
+            if finite.size:
+                self.gan_threshold = float(self.cfg.gate_auto_frac * np.median(finite))
         for m in self.members:
             m.pre_loss = m.running_loss
         if self.cfg.mutual_learning and len(self.members) > 1:
-            strong = self.members[0].state
-            for m in self.members[1:]:
-                # the shadow gets the same lerp as the params it averages
-                interpolate_params(m.state.params, strong.params,
-                                   self.cfg.mutual_alpha)
-                if m.state.ema_params:
-                    interpolate_params(m.state.ema_params, strong.ema_params,
-                                       self.cfg.mutual_alpha)
+            states = self.state
+            mutual_learning_lerp([s.params for s in states], self.cfg.mutual_alpha)
+            if states[0].ema_params:
+                mutual_learning_lerp([s.ema_params for s in states],
+                                     self.cfg.mutual_alpha)
 
     def snapshot(self) -> List[dict]:
         # gan_threshold rides in every record; NaN = not calibrated yet, so
@@ -172,10 +181,10 @@ class GeneratorPool:
         )
         return [
             {
-                "running_loss": m.running_loss,
-                "pre_loss": m.pre_loss,
-                "gan_updates": m.gan_updates,
-                "pixel_updates": m.pixel_updates,
+                "running_loss": float(m.running_loss),
+                "pre_loss": float(m.pre_loss),
+                "gan_updates": int(m.gan_updates),
+                "pixel_updates": int(m.pixel_updates),
                 "gan_threshold": gate,
             }
             for m in self.members

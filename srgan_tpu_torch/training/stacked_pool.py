@@ -1,17 +1,20 @@
-"""The stacked generator pool, the counterpart of
-``srgan_tpu/training/stacked_pool.py``: the two executors a pool of more
-than one generator runs (``PoolConfig.stacked=True``; ``member_exec="scan"``
-by default, or ``"vmap"``), and their numpy scheduler.
+"""The executors of a pool of more than one generator, the counterpart of
+``srgan_tpu/training/stacked_pool.py``: the scan executor
+(:func:`scanned_pool_step`, :func:`scanned_pool_gan_step`; the default,
+``member_exec="scan"``) and the vmap executor (``"vmap"``), with the
+helpers of JAX's stacked state that the one scheduler,
+``training/pool.py:GeneratorPool``, uses.
 
 In JAX the members' states are stacked on a leading pool axis and one
 compiled step scans over it, each iteration taking its member's gradient
-and Adam step. Here the "stacked" state is the list of the members'
-``TrainState``s and the scan is a loop over them: each member's forward,
-loss (K1-K3 on the card, once per member), backward and in-place Adam step
-in turn, so one member's activations are alive at a time. A permute is a
-reorder of the list and the mutual-learning lerp is ``interpolate_params``
-in place. As in JAX, the stacked state keeps ONE EMA decay, member 0's,
-for every member (:func:`stack_states`).
+and Adam step. Here there is no pool axis: the executors take the
+members' ``TrainState``s in pool order (``GeneratorPool.state``) and the
+scan is a loop over them: each member's forward, loss (K1-K3 on the card,
+once per member), backward and in-place Adam step in turn, so one member's
+activations are alive at a time. A permute is a reorder of the list and the
+mutual-learning lerp is ``interpolate_params`` in place. As in JAX, the
+pool keeps ONE EMA decay, member 0's, for every member
+(:func:`stack_states`).
 
 The GAN steps keep JAX's pairing: every member reads the discriminator
 before its update, D(hr) is computed once a batch (with its graph, which
@@ -55,11 +58,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from srgan_tpu_torch.config import PoolConfig
 from srgan_tpu_torch.ops.cuda.recon_loss_kernel import ReconstructionLoss
 from srgan_tpu_torch.ops.gan_loss import generator_adversarial_loss
 from srgan_tpu_torch.ops.recon_loss import reconstruction_loss
-from srgan_tpu_torch.training.pool import interpolate_params
 from srgan_tpu_torch.training.steps import (
     discriminator_step_on_sr,
     pack_metrics,
@@ -68,6 +69,17 @@ from srgan_tpu_torch.training.steps import (
 )
 from srgan_tpu_torch.training.train_state import TrainState
 from srgan_tpu_torch.utils.profiling import span
+
+
+@torch.no_grad()
+def interpolate_params(params: Sequence[torch.Tensor],
+                       target_params: Sequence[torch.Tensor],
+                       alpha: float = 0.2) -> None:
+    """``param = alpha*target + (1-alpha)*param`` in place over two lists of
+    tensors (reference ``interpolate_models``, ``src/utils.py:113-115``)."""
+    params = list(params)
+    torch._foreach_mul_(params, 1.0 - alpha)
+    torch._foreach_add_(params, list(target_params), alpha=alpha)
 
 
 def stack_states(states: Sequence[TrainState]) -> List[TrainState]:
@@ -81,10 +93,11 @@ def stack_states(states: Sequence[TrainState]) -> List[TrainState]:
     return list(states)
 
 
-def permute_members(states: Sequence[TrainState], perm) -> List[TrainState]:
-    """Epoch-end re-sort: member ``perm[i]`` becomes member i. The shared
-    EMA decay has no pool axis and stays."""
-    return [states[int(i)] for i in perm]
+def permute_members(members: Sequence, perm) -> list:
+    """Epoch-end re-sort: member ``perm[i]`` becomes member i (the states,
+    or the pool's members with their bookkeeping). The shared EMA decay has
+    no pool axis and stays."""
+    return [members[int(i)] for i in perm]
 
 
 @torch.no_grad()
@@ -294,132 +307,3 @@ def stacked_pool_gan_step(
     metrics = {**_metrics(losses), "d_loss": d_metrics["d_loss"]}
     metrics["packed"] = pack_metrics(metrics, d_metrics["d_loss"], states[0].group)
     return states, d_state, metrics
-
-
-class StackedGeneratorPool:
-    """The scheduler around the stacked state, exactly JAX's: the gate's
-    probabilities from the numpy running losses, one ``rng.random(n)`` a
-    batch for the GAN mask, ``np.argsort`` at the epoch end (not a stable
-    sort, unlike ``GeneratorPool``'s), the auto gate and the mutual lerp of
-    params and EMA shadows."""
-
-    def __init__(self, states: Sequence[TrainState], n: int, cfg: PoolConfig, seed=0):
-        self.state: List[TrainState] = list(states)
-        self.n = n
-        self.cfg = cfg
-        self._rng = np.random.default_rng(seed)
-        self.running_loss = np.full(n, np.inf)
-        self.pre_loss = np.full(n, np.inf)
-        self.gan_updates = np.zeros(n, np.int64)
-        self.pixel_updates = np.zeros(n, np.int64)
-        # the configured gate, or None = auto, calibrated at the first epoch
-        # end (GeneratorPool.end_epoch's rule)
-        self.gan_threshold: float | None = cfg.starting_gan_loss
-
-    @classmethod
-    def create(cls, states, cfg: PoolConfig, seed=0):
-        return cls(stack_states(states), len(states), cfg, seed)
-
-    def gan_probabilities(self) -> np.ndarray:
-        """Per-member P(GAN), the regimes of
-        ``GeneratorPool.gan_probability`` with its opt-in pre_loss
-        modulation."""
-        p = np.zeros(self.n)
-        finite = np.isfinite(self.running_loss)
-        if not finite.any():
-            return p
-        min_loss = self.running_loss[finite].min()
-        thr = (
-            self.gan_threshold
-            if self.gan_threshold is not None
-            else float("-inf")  # auto, before calibration: above-regime
-        )
-        for i in range(self.n):
-            if not finite[i]:
-                continue
-            if self.running_loss[i] > thr:
-                p[i] = self.cfg.p_gan_above
-            elif i == 0:
-                p[i] = self.cfg.p_gan_leader
-            elif self.running_loss[i] > min_loss:
-                p[i] = self.cfg.p_gan_follower
-            else:
-                p[i] = self.cfg.p_gan_leader
-        if self.cfg.pre_loss_gate:
-            has_snap = np.isfinite(self.pre_loss)
-            factor = np.where(
-                self.running_loss < self.pre_loss,
-                self.cfg.pre_loss_boost,
-                self.cfg.pre_loss_damp,
-            )
-            p = np.where(has_snap, np.minimum(1.0, p * factor), p)
-        return p
-
-    def sample_gan_mask(self, use_gan: bool) -> np.ndarray:
-        if not use_gan:
-            # the pixel phase counts a pixel update a member, as
-            # GeneratorPool.record_loss(…, used_gan=False) does
-            self.pixel_updates += 1
-            return np.zeros(self.n, np.float32)
-        probs = self.gan_probabilities()
-        mask = (self._rng.random(self.n) < probs).astype(np.float32)
-        self.gan_updates += mask.astype(np.int64)
-        self.pixel_updates += (1 - mask).astype(np.int64)
-        return mask
-
-    def record_losses(self, com_losses: np.ndarray):
-        e = self.cfg.loss_ema
-        fresh = ~np.isfinite(self.running_loss)
-        self.running_loss = np.where(
-            fresh, com_losses, e * self.running_loss + (1 - e) * com_losses
-        )
-
-    def end_epoch(self):
-        order = np.argsort(self.running_loss)
-        if not self.cfg.sort_ascending:
-            order = order[::-1]
-        if not np.array_equal(order, np.arange(self.n)):
-            self.state = permute_members(self.state, order)
-            self.running_loss = self.running_loss[order]
-            self.gan_updates = self.gan_updates[order]
-            self.pixel_updates = self.pixel_updates[order]
-        if self.cfg.starting_gan_loss is None and self.gan_threshold is None:
-            finite = self.running_loss[np.isfinite(self.running_loss)]
-            if finite.size:
-                self.gan_threshold = float(
-                    self.cfg.gate_auto_frac * np.median(finite)
-                )
-        self.pre_loss = self.running_loss.copy()
-        if self.cfg.mutual_learning and self.n > 1:
-            # the EMA shadows get the same lerp as the params they average
-            mutual_learning_lerp([s.params for s in self.state], self.cfg.mutual_alpha)
-            if self.state[0].ema_params:
-                mutual_learning_lerp([s.ema_params for s in self.state],
-                                     self.cfg.mutual_alpha)
-
-    def leader_params(self, *, serve: bool = False) -> List[torch.Tensor]:
-        """Member 0's params; ``serve=True`` prefers its EMA shadow."""
-        return self.member_params(0, serve=serve)
-
-    def member_params(self, i: int, *, serve: bool = False) -> List[torch.Tensor]:
-        st = self.state[i]
-        return st.ema_params if serve and st.ema_params else st.params
-
-    def snapshot(self):
-        # GeneratorPool.snapshot's records (NaN = auto gate not calibrated
-        # yet): snapshots of either pool restore into either
-        gate = (
-            float(self.gan_threshold)
-            if self.gan_threshold is not None
-            else float("nan")
-        )
-        return [
-            {
-                "running_loss": float(self.running_loss[i]),
-                "pre_loss": float(self.pre_loss[i]),
-                "gan_updates": int(self.gan_updates[i]),
-                "pixel_updates": int(self.pixel_updates[i]),
-                "gan_threshold": gate,
-            }
-            for i in range(self.n)
-        ]

@@ -140,8 +140,6 @@ def span(name: str, **attrs):
     return _Active(name, attrs)
 
 
-annotate = span
-
 
 def tags(**attrs):
     """Give every span opened inside the block on this thread ``attrs``."""

@@ -23,6 +23,7 @@ from srgan_tpu_torch.config import ModelConfig, PoolConfig, TrainConfig, shared_
 from srgan_tpu_torch.models.srresnet import init_generator
 from srgan_tpu_torch.training import checkpoint as ckpt
 from srgan_tpu_torch.training import pool as tpool
+from srgan_tpu_torch.training import stacked_pool as tsp
 from srgan_tpu_torch.training.steps import generator_pixel_step
 from srgan_tpu_torch.training.train_state import TrainState
 
@@ -33,7 +34,7 @@ TINY = ModelConfig(num_features=8, num_residuals=1, upscale_factor=2)
 
 def _pool(ema_decay=0.0, seed=0, cfg=PoolConfig()):
     state = TrainState(init_generator(TINY, seed=seed), ema_decay=ema_decay)
-    return tpool.GeneratorPool([tpool.PoolMember(state=state)], cfg)
+    return tpool.GeneratorPool([state], cfg)
 
 
 def _batches(k, seed=0):
@@ -55,7 +56,7 @@ class TestPool:
         want = jpool.interpolate_params([jnp.asarray(x) for x in a],
                                         [jnp.asarray(x) for x in b], 0.3)
         got = [torch.from_numpy(x.copy()) for x in a]
-        tpool.interpolate_params(got, [torch.from_numpy(x) for x in b], 0.3)
+        tsp.interpolate_params(got, [torch.from_numpy(x) for x in b], 0.3)
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
         lists = (["a", "b", "c"], [1, 2, 3], [0.5, 0.1, 0.9])
@@ -68,8 +69,11 @@ class TestPool:
         dict(sort_ascending=False, mutual_learning=False),
     ], ids=["auto_gate", "fixed_gate_pre_loss", "descending"])
     def test_scheduler_matches_jax(self, rng, kw):
-        """Three members through two epochs of losses: the same gate
-        probabilities, Bernoulli draws, order, threshold and snapshot."""
+        """Three members through two epochs of losses, the port's batch API
+        (one mask and one (N,) loss record a batch) against JAX's member
+        list (one ``choose_gan`` and one ``record_loss`` a member): the same
+        gate probabilities, Bernoulli draws, order, threshold and
+        snapshot."""
         losses = rng.uniform(0.1, 0.9, (2, 5, 3))
 
         class _State:  # the JAX pool's state stand-in: params only
@@ -86,16 +90,16 @@ class TestPool:
         states = [TrainState(torch.nn.Linear(1, 2, bias=False)) for _ in range(3)]
         for i, st in enumerate(states):
             st.params[0].data.fill_(float(i))
-        t = tpool.GeneratorPool([tpool.PoolMember(state=s) for s in states],
-                                PoolConfig(**kw), seed=7)
+        t = tpool.GeneratorPool(states, PoolConfig(**kw), seed=7)
         for epoch in range(2):
             for b in range(5):
+                assert t.gan_probabilities().tolist() == [j.gan_probability(i)
+                                                          for i in range(3)]
+                used = [j.choose_gan(i) for i in range(3)]
+                assert t.sample_gan_mask(True).astype(bool).tolist() == used
+                t.record_losses(losses[epoch, b])
                 for i in range(3):
-                    assert t.gan_probability(i) == j.gan_probability(i)
-                    used = t.choose_gan(i)
-                    assert used == j.choose_gan(i)
-                    t.record_loss(i, losses[epoch, b, i], used)
-                    j.record_loss(i, losses[epoch, b, i], used)
+                    j.record_loss(i, losses[epoch, b, i], used[i])
             t.end_epoch()
             j.end_epoch()
             np.testing.assert_equal(t.snapshot(), j.snapshot())
@@ -105,7 +109,8 @@ class TestPool:
                                            np.asarray(jm.state.params["w"]), rtol=1e-6)
         t.reseed(3)
         j.reseed(3)
-        assert [t.choose_gan(0) for _ in range(20)] == [j.choose_gan(0) for _ in range(20)]
+        assert ([t.sample_gan_mask(True).astype(bool).tolist() for _ in range(20)]
+                == [[j.choose_gan(i) for i in range(3)] for _ in range(20)])
 
 
 class TestCheckpointFiles:
@@ -213,7 +218,8 @@ class TestRestore:
         run = _pool(ema_decay)
         for hr, lr_imgs in batches[:2]:
             generator_pixel_step(run.leader.state, hr, lr_imgs, 1e-3)
-            run.record_loss(0, 0.5, used_gan=False)
+            run.sample_gan_mask(False)
+            run.record_losses([0.5])
         run.end_epoch()
         ckpt.save_checkpoint(str(tmp_path), "Training", pool=run, epoch=1)
         back = _pool(ema_decay, seed=5)
@@ -245,7 +251,8 @@ class TestRestore:
 
     def test_gate_threshold_and_generator_params(self, tmp_path):
         pool = _pool(0.9)
-        pool.record_loss(0, 0.4, used_gan=False)
+        pool.sample_gan_mask(False)
+        pool.record_losses([0.4])
         ckpt.save_checkpoint(str(tmp_path), "Training", pool=pool, epoch=1)
         fresh = _pool(0.9)
         ckpt.restore_checkpoint(str(tmp_path), "Training", pool=fresh)

@@ -237,7 +237,11 @@ class TestConfigErrors:
                                "depths": (6,) * 6, "num_heads": (6,) * 6,
                                "window_size": 8, "mlp_ratio": 2.0}
                 assert tc.shared_fields(tc.ModelConfig()) == port
-            assert port == dataclasses.asdict(getattr(jc, name)()), name
+            want = dataclasses.asdict(getattr(jc, name)())
+            if name == "PoolConfig":
+                # JAX's choice of pool layout: the port has one pool
+                assert want.pop("stacked") is True
+            assert port == want, name
 
 
 _FORBIDDEN = re.compile(

@@ -200,7 +200,7 @@ class TestGroupLoss:
 class TestProfiling:
     def test_trace_writes_a_file(self, tmp_path):
         with profiling.trace(str(tmp_path / "tr")):
-            with profiling.annotate("my_region"):
+            with profiling.span("my_region"):
                 torch.ones(8).sum()
         path = tmp_path / "tr" / profiling.TRACE_FILE
         text = path.read_text()

@@ -1,7 +1,8 @@
 """The port's generator pool against the JAX package: the stacked state's
 helpers (one shared EMA decay, permute, mutual lerp), the scan executor's
 steps (``scanned_pool_step``, ``scanned_pool_gan_step``) at N=3, the
-``StackedGeneratorPool`` scheduler over 20 batches and two epoch ends, the
+scheduler (``GeneratorPool``) against JAX's ``StackedGeneratorPool`` over
+20 batches and two epoch ends, the
 checkpoint across phases and pool sizes. Sizes: F=8, 1 block, HR 32x64, D 2 stages at
 8 filters.
 
@@ -316,8 +317,7 @@ class TestStackedScheduler:
         _, j_states, t_states = _pools(3, ema_decays=[0.9] * 3)
         j = jsp.StackedGeneratorPool.create(j_states, JPoolConfig(num_generators=3, **kw),
                                             seed=(4, 1))
-        t = tsp.StackedGeneratorPool.create(t_states, PoolConfig(num_generators=3, **kw),
-                                            seed=(4, 1))
+        t = tpool.GeneratorPool(t_states, PoolConfig(num_generators=3, **kw), seed=(4, 1))
         # the members' weights and shadows made distinct, as training would
         for i, st in enumerate(t.state):
             with torch.no_grad():
@@ -341,19 +341,65 @@ class TestStackedScheduler:
                 assert t.snapshot() == j.snapshot()
                 assert t.gan_threshold == j.gan_threshold
                 for i in range(3):
-                    got = t.member_params(i)
+                    got = t.state[i].params
                     want = jax.tree.map(lambda x: x[i], j.state.params)
                     names = [n for n, _ in t.state[i].model.named_parameters()]
                     _assert_tree_close(to_jax_params(dict(zip(names, got))), want,
                                        1e-7, 1e-6)
-                    shadow = to_jax_params(dict(zip(names, t.member_params(i, serve=True))))
+                    shadow = to_jax_params(dict(zip(names, t.state[i].ema_params)))
                     _assert_tree_close(shadow, jax.tree.map(lambda x: x[i],
                                                             j.state.ema_params), 1e-7, 1e-6)
         assert n_gan > 0
-        assert t.leader_params() is t.state[0].params
+        assert t.leader.state is t.state[0]
         t.sample_gan_mask(False)
         j.sample_gan_mask(False)
         assert t.snapshot() == j.snapshot()
+
+
+class TestOnePool:
+    def test_views_follow_the_members(self):
+        """The pool keeps its bookkeeping once, in its members: ``state``,
+        ``running_loss`` and ``gan_updates`` read them in pool order, after
+        the epoch end's re-sort too."""
+        _, _, t_states = _pools(3)
+        pool = tpool.GeneratorPool(t_states, PoolConfig(num_generators=3))
+        pool.record_losses(np.array([0.5, 0.2, 0.4]))
+        for i, m in enumerate(pool.members):
+            m.gan_updates = i
+        assert pool.state == t_states
+        pool.end_epoch()
+        assert pool.state == [t_states[1], t_states[2], t_states[0]]
+        np.testing.assert_array_equal(pool.running_loss, [0.2, 0.4, 0.5])
+        np.testing.assert_array_equal(pool.gan_updates, [1, 2, 0])
+        assert [m["pre_loss"] for m in pool.snapshot()] == [0.2, 0.4, 0.5]
+
+    def test_trainer_seams(self, tmp_path, folders):
+        """What the benchmark harness relies on: ``spool`` is the pool
+        itself where it has more than one member (None for one), ``train``
+        calls an ``end_epoch`` set on that instance, and ``pool_steps`` is
+        read at every batch."""
+        assert Trainer(_gan_config(tmp_path / "one", 1), device="cpu").spool is None
+        cfg = _gan_config(tmp_path, 3, p_gan_above=0.6)
+        trainer = Trainer(cfg.replace(train=dataclasses.replace(cfg.train, num_epochs=1)),
+                          device="cpu")
+        assert trainer.spool is trainer.pool
+        ends, calls = [], []
+        end_epoch = trainer.spool.end_epoch
+        trainer.spool.end_epoch = lambda: (ends.append(1), end_epoch())
+        step, gan_step = trainer.pool_steps
+
+        def later(*a, **k):
+            calls.append("later")
+            return gan_step(*a, **k)
+
+        def first(*a, **k):
+            calls.append("first")
+            trainer.pool_steps = (step, later)  # from the next batch on
+            return gan_step(*a, **k)
+
+        trainer.pool_steps = (step, first)
+        trainer.train(*folders)
+        assert calls == ["first", "later", "later"] and ends == [1]
 
 
 def _folder(path, n, seed):
@@ -438,8 +484,7 @@ class TestCheckpointAcrossPhasesAndSizes:
         def t_pool(n, seed):
             states = [tts.TrainState(init_generator(ModelConfig(**SMALL_G), seed=seed + i),
                                      ema_decay=0.9) for i in range(n)]
-            return tpool.GeneratorPool([tpool.PoolMember(state=s) for s in states],
-                                       PoolConfig())
+            return tpool.GeneratorPool(states, PoolConfig())
 
         saved = t_pool(n_disk, 0)
         hr, lr_imgs = (torch.from_numpy(x) for x in _batch(rng))

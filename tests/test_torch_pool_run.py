@@ -1,8 +1,8 @@
 """The port's ``Trainer.train`` in the GAN phase against the JAX
-package's: a pool of 3 on the stacked scan executor, one generator (the
-fused step), and a pool of 3 on the member list, in fp32 and bf16, over
-2 epochs; a SIGTERM stop and resume of the pool, bit for bit; and the
-``train`` CLI with ``--gan --num-generators 3``, across the phase boundary.
+package's: a pool of 3 on the scan executor and one generator (the fused
+step), in fp32 and bf16, over 2 epochs; a SIGTERM stop and resume of the
+pool, bit for bit; and the ``train`` CLI with ``--gan --num-generators 3``,
+across the phase boundary.
 Sizes and learning rates as in tests/test_torch_pool.py, which says why.
 
 Tolerances: losses and PSNR rel 1e-4 (fp32) / 2e-2 (bf16); the
@@ -58,16 +58,15 @@ def _records_close(recs_t, recs_j, dtype):
 
 
 class TestTrainerAgainstJax:
-    @pytest.mark.parametrize("n,stacked,dtype", [
-        (3, True, "float32"), (1, True, "float32"), (3, False, "float32"),
-        (3, True, "bfloat16"), (1, True, "bfloat16"),
-    ], ids=["pool3_stacked", "single", "pool3_list", "pool3_stacked_bf16", "single_bf16"])
-    def test_gan_train_matches_jax_trainer(self, tmp_path, folders, n, stacked, dtype):
+    @pytest.mark.parametrize("n,dtype", [
+        (3, "float32"), (1, "float32"), (3, "bfloat16"), (1, "bfloat16"),
+    ], ids=["pool3_stacked", "single", "pool3_stacked_bf16", "single_bf16"])
+    def test_gan_train_matches_jax_trainer(self, tmp_path, folders, n, dtype):
         """Trainer.train with use_gan against the JAX Trainer.train, 2
         epochs with checkpoints and keep_best: the JSONL records (the pool
         snapshots, gan_threshold, d_loss), the artifact names, byte-equal
         sidecars. The JAX trainer's generators and D are bridged in."""
-        pool = dict(p_gan_above=0.6, stacked=stacked)
+        pool = dict(p_gan_above=0.6)
         cfg_t = _gan_config(tmp_path / "torch", n, **pool)
         cfg_t = cfg_t.replace(
             model=dataclasses.replace(cfg_t.model, compute_dtype=dtype),
@@ -83,7 +82,7 @@ class TestTrainerAgainstJax:
                         train=JTrainConfig(**j_train))
         trainer_j = JTrainer(cfg_j, use_mesh=False)
         trainer_t = Trainer(cfg_t, device="cpu")
-        assert trainer_t.use_stacked == trainer_j.use_stacked == (stacked and n > 1)
+        assert trainer_j.use_stacked == (trainer_t.spool is trainer_t.pool) == (n > 1)
         for m_t, m_j in zip(trainer_t.pool.members, trainer_j.pool.members):
             m_t.state.model.load_state_dict(from_jax_params(jax.device_get(m_j.state.params)))
         trainer_t.d_state.model.load_state_dict(
@@ -105,7 +104,7 @@ class TestTrainerAgainstJax:
 
 
 def test_sigterm_then_resume_equals_uninterrupted_pool_gan(tmp_path, folders, monkeypatch):
-    """N=3 stacked, GAN, EMA: a SIGTERM after the first batch of epoch 2,
+    """N=3, GAN, EMA: a SIGTERM after the first batch of epoch 2,
     then resume, equals the stopped trainer carried on in memory (with the
     scheduler reseeded as the resume reseeds it), bit for bit: every
     member's params, Adam moments and shadows, D, and the pool's records."""
@@ -133,7 +132,7 @@ def test_sigterm_then_resume_equals_uninterrupted_pool_gan(tmp_path, folders, mo
     assert [r["epoch"] for r in resumed.logger.read_records()] == [1, 2, 3]
 
     stopped._stop_requested = False
-    stopped._rebuild_stacked_from_pool(1)  # what the resume does
+    stopped.pool.reseed((cfg.train.seed, 1))  # what the resume does
     pipe = TrainPipeline(cfg.data, folders[0], seed=cfg.train.seed, device="cpu")
     try:
         for epoch in (1, 2):

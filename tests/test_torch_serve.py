@@ -325,7 +325,7 @@ class TestUpscaler:
 
 def _save(results, params_list, cfg, ema_params=None, prefix="Training"):
     """A port snapshot of the bridged generators (``save_checkpoint``)."""
-    members = []
+    states = []
     for params in params_list:
         state = TrainState(_port(params, cfg), ema_decay=0.5 if ema_params else 0.0)
         if ema_params:
@@ -334,9 +334,9 @@ def _save(results, params_list, cfg, ema_params=None, prefix="Training"):
                 names = [n for n, _ in state.model.named_parameters()]
                 for t, n in zip(state.ema_params, names):
                     t.copy_(sd[n])
-        members.append(tpool.PoolMember(state=state))
+        states.append(state)
     ckpt.save_checkpoint(str(results), prefix, pool=tpool.GeneratorPool(
-        members, PoolConfig(num_generators=len(members))), epoch=1,
+        states, PoolConfig(num_generators=len(states))), epoch=1,
         model_config=ModelConfig(**cfg))
 
 

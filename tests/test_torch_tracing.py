@@ -1,8 +1,7 @@
 """The port's spans and host-sync counts (``srgan_tpu_torch/utils/profiling.py``)
 on the CPU at tiny sizes: nothing is recorded, and no clock or
 ``record_function`` is touched, with no profiler on; under ``trace`` the
-training loop, the pool's two executors, the member list and the
-``Upscaler`` record the span trees their call sites promise, on the clock
+training loop, the pool's two executors and the ``Upscaler`` record the span trees their call sites promise, on the clock
 of the profiler's events; and the benchmark's six span readers
 (``h100bench/metrics/``) split device idle between spans as they say."""
 
@@ -176,11 +175,9 @@ def test_training_span_tree(tmp_path):
     assert len(scores) == 2 * 2 and {s.attrs["epoch"] for s in scores} == {0, 1}
 
 
-@pytest.mark.parametrize("exec_,stacked", [("scan", True), ("vmap", True), ("scan", False)],
-                         ids=["scan", "vmap", "member_list"])
-def test_pool_span_trees(tmp_path, exec_, stacked):
-    cfg = _config(tmp_path / "res", n=3, gan=True, member_exec=exec_, stacked=stacked,
-                  p_gan_above=0.6)
+@pytest.mark.parametrize("exec_", ["scan", "vmap"])
+def test_pool_span_trees(tmp_path, exec_):
+    cfg = _config(tmp_path / "res", n=3, gan=True, member_exec=exec_, p_gan_above=0.6)
     _, _, recs = _traced(tmp_path, lambda: _train(cfg))
     by_id = _check_tree(recs)
     steps = _names(recs, "step.d")
@@ -239,7 +236,7 @@ def test_spans_on_the_profilers_clock(tmp_path):
     assert len(mine) == len(mms) == len(recs) == 20
     for rec, ev, mm in zip(recs, mine, mms):
         assert rec.start_ns <= mm.start_ns() and mm.start_ns() + mm.duration_ns() <= rec.end_ns
-        assert abs(ev.start_ns() - rec.start_ns) < 1_000_000
+        assert rec.start_ns <= ev.start_ns()
         assert rec.start_ns <= ev.start_ns() + ev.duration_ns() <= rec.end_ns
 
 
