@@ -31,11 +31,7 @@ Phases, each of which must pass (any failure exits non-zero):
      epoch and read just after: K1, K2 and K3 must each have launched once
      per step, on their vector path. ``compute_score`` on one validation
      batch (fp32); one profiled epoch of fp32 batch 12 and of bf16 batch 24
-     (device time by kernel and by group). Then the layout experiment at
-     batch 12 in both dtypes: the model's weights and activations in
-     ``channels_last`` against the default layout, in turns (default,
-     channels_last, channels_last, default), with the run-to-run spread
-     and a profiled epoch of bf16 channels_last;
+     (device time by kernel and by group);
   5. the GAN steps at a small size, in fp32 and bf16: one
      ``gan_train_step``, one ``discriminator_step_on_sr`` and one
      ``scanned_pool_gan_step`` (N=3, mask [1, 0, 1]) on the card against
@@ -180,6 +176,13 @@ Phases, each of which must pass (any failure exits non-zero):
      static shared memory, the plain route's ms, and which of torch's
      ``scaled_dot_product_attention`` backends takes the shape.
      ``python3 chip_smoke.py --phase window_attention`` runs it alone.
+
+GroupNorm's kernels (``csrc/group_norm.cu``) run right after phase 2: the
+NCHW forward at the serving and scoring shapes, then the NHWC forward and
+backward at the pixel cells' and a 4K request's shapes, against torch's
+route, with device ms beside the byte bound and forward + backward by
+autograd against torch's route. ``python3 chip_smoke.py --phase
+group_norm`` runs them alone.
 
 It prints a ``{"kernels": [...]}`` line (K2's and K3's records carry their
 member-axis launch under ``"pooled"``, and the vmap runs' launches in
@@ -531,12 +534,9 @@ def group_norm_phase(dev) -> dict:
             for _ in range(reps):
                 kern()
             torch.cuda.synchronize()
-        by_kernel: dict = {}
-        for e in _device_events(prof):
-            for k in gk.KERNELS:
-                if k in e.name:
-                    by_kernel[k] = by_kernel.get(k, 0.0) + e.time_range.elapsed_us() / reps / 1e3
-        check(set(by_kernel) == set(gk.KERNELS), f"group norm {tag}: profiler saw {by_kernel}")
+        by_kernel = _group_norm_device_ms(prof, reps)
+        nchw = {k for k in gk.KERNELS if "nhwc" not in k}
+        check(set(by_kernel) == nchw, f"group norm {tag}: profiler saw {by_kernel}")
         names = sorted({e.name for e in _device_events(prof) if "group_norm" in e.name})
         route = lambda: torch.native_group_norm(x.float(), w, b, n, c, hw, 8, 1e-6)[0].bfloat16()
         library = lambda: torch.native_group_norm(xf, w, b, n, c, hw, 8, 1e-6)
@@ -560,6 +560,122 @@ def group_norm_phase(dev) -> dict:
         out[tag] = rec
         print(f"group norm {tag} {shape}: " + json.dumps(rec), flush=True)
         del x, xf
+    return out
+
+
+def _group_norm_device_ms(prof, reps: int) -> dict:
+    """Device ms a call of each GroupNorm kernel the profile saw (the
+    longest name of ``gk.KERNELS`` a launch's name holds)."""
+    out: dict = {}
+    for e in _device_events(prof):
+        names = [k for k in gk.KERNELS if k in e.name]
+        if names:
+            k = max(names, key=len)
+            out[k] = out.get(k, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    return out
+
+
+# the pixel cells' norm input (LR 128x256, batch 24) and a 4K request's
+GROUP_NORM_NHWC_SHAPES = {"train": (24, 64, 128, 256), "serve": (1, 64, 540, 960)}
+
+
+def group_norm_nhwc_phase(dev) -> dict:
+    """GroupNorm's NHWC kernels in bf16 on channels-last input at each shape
+    of ``GROUP_NORM_NHWC_SHAPES``: the forward and the backward, each two
+    calls bit for bit on the vector path, against torch's route (the f32
+    cast, ``native_group_norm``, the cast back, and their backward; one
+    bf16 ulp at the largest |y| and |dx|; dweight and dbias 1e-5 of the
+    sum of their terms' magnitudes a channel); each kernel's device ms a call by
+    the profiler beside the bound (forward: x read twice, y written; backward:
+    x and dy read twice, dx written), the wrappers' ms by events, and
+    forward + backward by autograd against torch's route on NCHW input
+    (``route_ms``, the step's norm before the NHWC kernels)."""
+    from srgan_tpu_torch.ops.cuda.build import current_stream
+
+    out = {}
+    cl = torch.channels_last
+    for tag, shape in GROUP_NORM_NHWC_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(0)
+        x = (torch.randn(shape, generator=g, device=dev) * 1.5 + 0.3).bfloat16()
+        x = x.contiguous(memory_format=cl)
+        dy = torch.randn(shape, generator=g, device=dev).bfloat16().contiguous(memory_format=cl)
+        w = torch.rand(shape[1], generator=g, device=dev) + 0.5
+        b = torch.rand(shape[1], generator=g, device=dev) - 0.5
+        gk.reset_launches()
+        fwd = lambda: gk.group_norm_nhwc(x, w, b, 8, 1e-6)
+        (y, stats), (y2, _) = fwd(), fwd()
+        lib, stream = gk._lib(), current_stream(x)
+        bwd = lambda: gk._launch_nhwc_backward(lib, x, dy, stats, w, 8, 1e-6, True, stream)
+        grads, grads2 = bwd(), bwd()
+        xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        native = gk.native_group_norm(xr, wr, br, 8, 1e-6, torch.bfloat16)
+        native.backward(dy)
+        torch.cuda.synchronize()
+        check(gk.paths["nhwc_scalar"] == 0 and torch.equal(y, y2)
+              and all(torch.equal(a, c) for a, c in zip(grads, grads2)),
+              f"group norm nhwc {tag}: paths {gk.paths}, or two calls differ")
+        top = lambda t: 2.0 ** (math.floor(math.log2(float(t.abs().max()))) - 7)
+        gap_y = float((y.double() - native.double()).abs().max())
+        gap_dx = float((grads[0].double() - xr.grad.double()).abs().max())
+        check(gap_y <= top(native) and gap_dx <= top(xr.grad),
+              f"group norm nhwc {tag}: |y - torch's| {gap_y}, |dx - torch's| {gap_dx}")
+        # dweight and dbias (the params kernel, over the per-(image, channel)
+        # sums the backward's finalise writes) within 1e-5 of the sum of their
+        # terms' magnitudes: both reduce every pixel of every image a channel,
+        # here and in torch's route, in other orders
+        xg = x.double().reshape(shape[0], 8, -1)
+        xh = (xg - xg.mean(-1, keepdim=True)) / xg.std(-1, unbiased=False, keepdim=True)
+        terms = (dy.double().abs() * (1 + xh.reshape(shape).abs())).sum((0, 2, 3))
+        gap_dw, gap_db = (float(((d.double() - r.grad.double()).abs() / terms).max())
+                          for d, r in ((grads[1], wr), (grads[2], br)))
+        check(gap_dw <= 1e-5 and gap_db <= 1e-5,
+              f"group norm nhwc {tag}: |dweight - torch's| {gap_dw}, |dbias - torch's| "
+              f"{gap_db} of the sum of their terms' magnitudes")
+        del y2, grads2, native, xr, wr, br, xg, xh, terms
+
+        reps = 10
+        device = {}
+        for part, fn in (("forward", fwd), ("backward", bwd)):
+            with profile(activities=[ProfilerActivity.CUDA]):
+                fn()
+                torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            device[part] = _group_norm_device_ms(prof, reps)
+        xn = x.contiguous()
+        dyn = dy.contiguous()
+
+        def autograd(xin, dyin, route):
+            xr = xin.detach().requires_grad_()
+            wr, br = w.detach().requires_grad_(), b.detach().requires_grad_()
+            if route == "nhwc":
+                yr = gk.GroupNormNHWC.apply(xr, wr, br, 8, 1e-6)[0]
+            else:
+                yr = gk.native_group_norm(xr, wr, br, 8, 1e-6, torch.bfloat16)
+            yr.backward(dyin)
+
+        rec = {k: statistics.median(time_ms(fn, windows=3, reps=10)) for k, fn in (
+            ("forward_ms", fwd), ("backward_ms", bwd),
+            ("fwd_bwd_ms", lambda: autograd(x, dy, "nhwc")),
+            ("route_ms", lambda: autograd(xn, dyn, "native")))}
+        n_bytes = x.numel() * 2
+        rec.update(
+            shape=list(shape),
+            kernel_device_ms=device,
+            forward_device_ms=sum(device["forward"].values()),
+            backward_device_ms=sum(device["backward"].values()),
+            forward_bound_ms=3 * n_bytes / HBM_BYTES_PER_S * 1e3,
+            backward_bound_ms=5 * n_bytes / HBM_BYTES_PER_S * 1e3,
+            gap_y=gap_y, gap_dx=gap_dx, gap_dweight=gap_dw, gap_dbias=gap_db,
+            launches=dict(gk.launches),
+        )
+        for part in ("forward", "backward"):
+            rec[f"{part}_bound_share"] = rec[f"{part}_bound_ms"] / rec[f"{part}_device_ms"]
+        out[tag] = rec
+        print(f"group norm nhwc {tag} {shape}: " + json.dumps(rec), flush=True)
+        del x, dy, xn, dyn, y, stats, grads
     return out
 
 
@@ -724,8 +840,15 @@ def sdpa_probe(qkv, bias, heads, ws, shift, grid) -> dict:
 
 
 def group_norm_counts() -> dict:
-    """GroupNorm's launches and routes since ``gk.reset_launches()``."""
-    return {"launches": gk.launches["group_norm"], "paths": dict(gk.paths)}
+    """GroupNorm's launches (forward calls, and the NHWC backward's) and
+    routes since ``gk.reset_launches()``."""
+    return {"launches": gk.launches["group_norm"],
+            "backward": gk.launches["group_norm_backward"], "paths": dict(gk.paths)}
+
+
+def group_norm_kernel_calls(norms: dict) -> int:
+    """The calls of ``group_norm_counts()`` that took the kernels."""
+    return sum(norms["paths"][k] for k in ("vec", "scalar", "nhwc", "nhwc_grad"))
 
 
 # Bars of the steps on the card against the CPU, each network's Adam first
@@ -856,19 +979,6 @@ def smooth_clips(dev, n: int, seed: int, hw=LOSS_SHAPE[1:3]) -> np.ndarray:
     return u8.permute(0, 2, 3, 1).contiguous().cpu().numpy()
 
 
-def channels_last(trainer) -> None:
-    """The layout experiment: the model's weights and its activations in
-    ``channels_last`` (GroupNorm's output is turned back to it, since the
-    CUDA group_norm returns NCHW). The public NHWC contract is unchanged:
-    the input's NCHW view is channels_last already."""
-    model = trainer.pool.leader.state.model
-    model.to(memory_format=torch.channels_last)
-    for m in model.modules():
-        if isinstance(m, torch.nn.GroupNorm):
-            m.register_forward_hook(
-                lambda mod, args, out: out.contiguous(memory_format=torch.channels_last))
-
-
 class Flagship:
     """One flagship Trainer (F=64, 16 blocks, 4x subpixel head, HR
     512x1024) on clips in the device cache, with a temporary results dir.
@@ -879,7 +989,7 @@ class Flagship:
     residual block recomputed in the backward."""
 
     def __init__(self, dev, compute_dtype: str, batch: int, clips, results_dir: str,
-                 layout: str = "default", n_gen: int = 1, gan: bool = False,
+                 n_gen: int = 1, gan: bool = False,
                  steps: int = FLAGSHIP_STEPS, train: dict | None = None, tag: str = "",
                  data: dict | None = None, member_exec: str = "scan",
                  remat: bool = False):
@@ -890,7 +1000,6 @@ class Flagship:
         from srgan_tpu_torch.training.loop import Trainer
 
         self.tag = f"{compute_dtype} batch {batch}" + (
-            " channels_last" if layout == "channels_last" else "") + (
             f" pool {n_gen}" if n_gen > 1 else "") + (
             f" {member_exec}" if member_exec != "scan" else "") + (
             " remat" if remat else "") + (" gan" if gan else "") + tag
@@ -899,6 +1008,7 @@ class Flagship:
         # K1-K3 launches a step: once a member, or once for all (vmap)
         self.vmap = member_exec == "vmap" and n_gen > 1
         self.per_step = 1 if self.vmap else n_gen
+        self.members, self.remat = n_gen, remat
         cfg = Config(
             model=ModelConfig(compute_dtype=compute_dtype, remat=remat),
             discriminator=DiscriminatorConfig(compute_dtype=compute_dtype),
@@ -909,8 +1019,7 @@ class Flagship:
                               results_dir=results_dir, use_gan=gan, **(train or {})),
         )
         self.trainer = Trainer(cfg)  # the card, by default
-        if layout == "channels_last":
-            channels_last(self.trainer)
+        self.norms = 2 * cfg.model.num_residuals  # GroupNorms in one forward
         self.pipe = TrainPipeline(cfg.data, ArrayDataset(clips[:steps * batch]),
                                   use_split=False, seed=cfg.train.seed)
         t0 = time.perf_counter()
@@ -941,9 +1050,12 @@ class Flagship:
     def counted(self, rk) -> dict:
         """The main path's counted epoch: launch counts zeroed just before
         and read just after; K1, K2 and K3 once per step and member, vector
-        path; GroupNorm's kernels never (a training step's norms need their
-        gradient: torch's, by ``group_norm_counts``)."""
+        path; every GroupNorm of every member's step by the NHWC kernels'
+        vector path, forward and backward, each once a step (a remat block's
+        forward once more, without a gradient); the vmap executor's by
+        torch's (``group_norm_counts``)."""
         want = self.steps * self.per_step
+        want_norms = self.norms * self.steps * self.members
         before = self.snapshot()
         torch.cuda.reset_peak_memory_stats()
         rk.reset_launches()
@@ -951,8 +1063,15 @@ class Flagship:
         m, dt = self.epoch()
         counts, paths, pooled = dict(rk.launches), dict(rk.paths), dict(rk.pooled)
         norms = group_norm_counts()
-        check(norms["launches"] == 0 and norms["paths"]["vec"] == 0,
-              f"{self.tag}: GroupNorm's kernels in a training step: {norms}")
+        if self.vmap:
+            check(norms["launches"] == 0 and norms["backward"] == 0,
+                  f"{self.tag}: GroupNorm's kernels under the vmap executor: {norms}")
+        else:
+            want_paths = {k: 0 for k in norms["paths"]}
+            want_paths.update(nhwc_grad=want_norms, nhwc=want_norms if self.remat else 0)
+            check(norms["paths"] == want_paths and norms["backward"] == want_norms,
+                  f"{self.tag}: GroupNorm in {self.steps} steps of {self.members} member(s): "
+                  f"{norms}, expected paths {want_paths} and {want_norms} backward launches")
         peak = torch.cuda.max_memory_allocated()
         want_pooled = self.steps if self.vmap else 0
         check(all(v == want_pooled for v in pooled.values()),
@@ -992,9 +1111,7 @@ def training_phase(rk, dev) -> dict:
     """The flagship step through ``Trainer.train_epoch``: fp32 at batch 12
     (its counts feed the kernels line), bf16 at batch 12 and 24, each a
     warm-up epoch then a counted one; ``compute_score`` on fp32; a profiled
-    epoch of fp32 and of bf16 batch 24; then the layout experiment at
-    batch 12 in both dtypes, default and channels_last in turns, with a
-    profiled epoch of bf16 channels_last."""
+    epoch of fp32 and of bf16 batch 24."""
     clips = smooth_clips(dev, FLAGSHIP_STEPS * 24, 1)
     val_clips = smooth_clips(dev, 12, 2)
     out = {}
@@ -1027,37 +1144,12 @@ def training_phase(rk, dev) -> dict:
                           "validation score not finite")
                     # a scoring forward: 32 norms, no gradient, the kernels
                     check(scoring["launches"] > 0 and scoring["launches"] % 32 == 0
-                          and scoring["launches"] == scoring["paths"]["vec"]
+                          and scoring["launches"] == scoring["paths"]["nhwc"]
                           and scoring["paths"]["grad"] == 0,
                           f"scoring: GroupNorm {scoring}, expected the kernels only")
                     print(f"train {run.tag}: psnr {psnr:.3f} ssim {ssim:.4f}; group norm "
                           f"{scoring}", flush=True)
             runs.pop(("bfloat16", 24)).close()  # free its cached clips
-
-            # layout: default, channels_last, channels_last, default for
-            # each dtype
-            for compute_dtype in ("float32", "bfloat16"):
-                default = runs[(compute_dtype, 12)]
-                cl = Flagship(dev, compute_dtype, 12, clips, results_dir,
-                              layout="channels_last")
-                try:
-                    times = {"default": [out[(compute_dtype, 12)]["step_ms"]],
-                             "channels_last": []}
-                    for layout, run in (("channels_last", cl), ("channels_last", cl),
-                                        ("default", default)):
-                        times[layout].append(run.epoch()[1] / FLAGSHIP_STEPS * 1e3)
-                    if compute_dtype == "bfloat16":  # where its time goes
-                        profile_epoch(cl.trainer, cl.pipe, FLAGSHIP_STEPS, cl.tag)
-                finally:
-                    cl.close()
-                spread = max(abs(t[0] - t[1]) for t in times.values())
-                gain = (statistics.mean(times["default"])
-                        - statistics.mean(times["channels_last"]))
-                print(f"layout {compute_dtype} batch 12: ms/step default "
-                      + " / ".join(f"{t:.2f}" for t in times["default"])
-                      + ", channels_last " + " / ".join(f"{t:.2f}" for t in times["channels_last"])
-                      + f"; channels_last faster by {gain:.2f} ms/step, run-to-run "
-                      f"spread {spread:.2f} ms", flush=True)
         finally:
             for run in runs.values():
                 run.close()
@@ -1890,10 +1982,10 @@ def serve_phase(rk, tk, dev, res: str) -> dict:
     check(all(v == 0 for v in counts.values()),
           f"serve: kernels launched at serve time: {counts}")
     # GroupNorm's kernels, 32 a forward (the CPU's forwards count ``cpu``;
-    # ``Upscaler.forward`` timed outside ``torch.no_grad`` counts ``grad``)
+    # ``Upscaler.forward`` timed outside ``torch.no_grad`` counts ``nhwc_grad``)
     norms = group_norm_counts()
     check(norms["launches"] > 0 and norms["launches"] % 32 == 0
-          and norms["launches"] == norms["paths"]["vec"] + norms["paths"]["scalar"],
+          and norms["launches"] == group_norm_kernel_calls(norms),
           f"serve: GroupNorm {norms}, expected the kernels on the card")
     print(f"serve: phase {time.perf_counter() - t_phase:.1f} s; launches {counts}; "
           f"group norm {norms}", flush=True)
@@ -2949,6 +3041,23 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--phase", "group_norm"]:
+        from srgan_tpu_torch.ops.cuda.build import build, ptxas_report
+        from srgan_tpu_torch.utils.platform import disable_tf32, make_deterministic
+
+        build(["group_norm"])
+        for line in ptxas_report("group_norm").splitlines():
+            if "entry function" in line or "registers" in line or "spill" in line:
+                print(f"ptxas group_norm: {line.strip()}")
+        disable_tf32()
+        make_deterministic()
+        dev = torch.device("cuda")
+        rec = {**group_norm_phase(dev), **{f"nhwc {k}": v
+                                           for k, v in group_norm_nhwc_phase(dev).items()}}
+        print(json.dumps({"kernels": [{"name": "group_norm", "route": "cuda",
+                                       "source": "srgan_tpu_torch/csrc/group_norm.cu",
+                                       "replaces": None, **rec}]}))
+        return 0
     if sys.argv[1:] == ["--phase", "window_attention"]:
         from srgan_tpu_torch.utils.platform import disable_tf32, make_deterministic
 
@@ -2983,7 +3092,8 @@ def main() -> int:
     dev = torch.device("cuda")
     disable_tf32()
     kernels = kernel_phase(rk, dev)
-    group_norm = group_norm_phase(dev)
+    group_norm = {**group_norm_phase(dev),
+                  **{f"nhwc {k}": v for k, v in group_norm_nhwc_phase(dev).items()}}
     small_step_phase(dev)
     gan_small_step_phase(dev)
     pixel, scoring = training_phase(rk, dev)
@@ -3043,7 +3153,7 @@ def main() -> int:
         rec["launches_by_path"] = {"tower": rec["launches"], "serve": serve[name]}
     line += tower
     # GroupNorm's launches and routes on each path, read just after it: the
-    # kernels in scoring and serving, torch's in every training step
+    # NHWC kernels everywhere but under the vmap executor (torch's)
     line.append({"name": "group_norm", "route": "cuda",
                  "source": "srgan_tpu_torch/csrc/group_norm.cu", "replaces": None,
                  "launches_by_path": {

@@ -13,10 +13,16 @@ ReLU → conv3x3 → GroupNorm → +skip) → conv3x3 + global skip → the head
     conv9x9 to RGB at full resolution.
 
 The public layout is NHWC in and out, like the JAX module; inside, the
-model runs NCHW. Traps against flax: ``nn.GroupNorm`` here is built with
-eps 1e-6 (flax's default; torch's is 1e-5), and flax computes the variance
-as E[x²]−E[x]² where torch takes E[(x−μ)²] — equal up to rounding. Every
-conv carries a bias, as flax's ``nn.Conv`` does.
+modules see NCHW-shaped tensors in channels-last (NHWC) memory from the
+stem to the head: the input's NCHW view is laid out channels-last (a copy
+only where the batch is not NHWC-contiguous), cuDNN's convs keep it,
+GroupNorm's NHWC kernels read and write it (forward and backward,
+``ops/cuda/group_norm_kernel.py``), and the pixel (un)shuffles are
+written on the NHWC memory (:func:`pixel_shuffle`), so no conv gets an
+NCHW tensor to transpose. Traps against flax: ``nn.GroupNorm`` here is
+built with eps 1e-6 (flax's default; torch's is 1e-5), and flax computes
+the variance as E[x²]−E[x]² where torch takes E[(x−μ)²] — equal up to
+rounding. Every conv carries a bias, as flax's ``nn.Conv`` does.
 
 ``compute_dtype="bfloat16"`` puts the roundings where flax's
 ``dtype=bfloat16`` modules put them, by explicit casts (``torch.autocast``
@@ -47,6 +53,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from srgan_tpu_torch.config import ModelConfig
+from srgan_tpu_torch.ops import pixel_shuffle as nhwc
 from srgan_tpu_torch.ops.cuda import group_norm_kernel
 
 HEADS = ("subpixel", "coarse", "reference")
@@ -81,10 +88,10 @@ class Conv2d(nn.Conv2d):
 class GroupNorm(nn.GroupNorm):
     """flax ``nn.GroupNorm(dtype=compute_dtype)``: statistics, normalise,
     scale and bias in f32, one rounding to the compute dtype at the
-    output. Where no gradient flows through it on the card (serving,
-    scoring), by the kernels of ``ops/cuda/group_norm_kernel.py``; else by
-    torch's ``native_group_norm`` on the f32 cast (the route is
-    ``group_norm_kernel.group_norm``'s)."""
+    output. On the card by the kernels of ``ops/cuda/group_norm_kernel.py``
+    (the NHWC ones for the model's channels-last activations, with their
+    backward); on the CPU by torch's ``native_group_norm`` on the f32 cast
+    (the route is ``group_norm_kernel.group_norm``'s)."""
 
     def __init__(self, groups: int, features: int,
                  compute_dtype: torch.dtype = torch.float32):
@@ -94,6 +101,18 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return group_norm_kernel.group_norm(x, self.weight, self.bias, self.num_groups,
                                             self.eps, self.compute_dtype)
+
+
+def pixel_shuffle(x: torch.Tensor) -> torch.Tensor:
+    """``F.pixel_shuffle(x, 2)`` of an NCHW-shaped batch, returned in
+    channels-last memory: one copy, of the NHWC memory (a channels-last x's
+    NHWC view is free)."""
+    return nhwc.pixel_shuffle(x.permute(0, 2, 3, 1), 2).permute(0, 3, 1, 2)
+
+
+def pixel_unshuffle(x: torch.Tensor) -> torch.Tensor:
+    """``F.pixel_unshuffle(x, 2)``, likewise channels-last."""
+    return nhwc.pixel_unshuffle(x.permute(0, 2, 3, 1), 2).permute(0, 3, 1, 2)
 
 
 def _norm(norm: str, groups: int, features: int, compute_dtype) -> nn.Module:
@@ -158,10 +177,10 @@ class RematBlock(torch.autograd.Function):
     block's ``_param_names`` order. The skip add stays outside, so the
     input's two gradients meet in autograd's engine as they do without
     remat (the same bits); the bf16 casts live in the branch and are
-    recomputed with it. Its forward takes torch's GroupNorm, as the
-    recompute does (``group_norm_kernel.native_route``): the forward runs
-    without a graph, where the norm would otherwise take the hand-written
-    kernels, whose last bf16 bit may differ.
+    recomputed with it. The forward runs without a graph and the recompute
+    with one; GroupNorm's route gives both the same forward kernels (on the
+    card the NHWC ones, on the CPU torch's), so the activations downstream
+    are the ones the gradient is taken at.
 
     Under ``torch.func.vmap`` (the vmap pool executor, whose members' params
     are batched) the rule hands the unwrapped (N, …) tensors to
@@ -172,8 +191,7 @@ class RematBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(block, x, *params):
-        with group_norm_kernel.native_route():
-            return _branch(block)(x, *params)
+        return _branch(block)(x, *params)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -281,7 +299,11 @@ class SRResNet(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)  # the stem casts it to the compute dtype
+        # the NCHW view in channels-last memory: free for an NHWC-contiguous
+        # batch (serving's); batch prep's LR comes out of its resize einsum
+        # (B, H, C, W)-ordered, and cuDNN would run such an input, and every
+        # layer after it, NCHW. The stem casts it to the compute dtype.
+        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         out1 = F.leaky_relu(self.stem(x), 0.2)
         out = out1
         for block in self.blocks:
@@ -293,19 +315,19 @@ class SRResNet(nn.Module):
 
         if self.head == "reference":
             for conv in self.upsample:
-                out = F.relu(F.pixel_shuffle(conv(out), 2))
+                out = F.relu(pixel_shuffle(conv(out)))
             out = self.tail(out)
         else:
             # fold the RGB head through the last shuffle: conv → ReLU
             # (commuted through the shuffle) → phase conv → shuffle(s)
             for conv in self.upsample[:-1]:
-                out = F.relu(F.pixel_shuffle(conv(out), 2))
+                out = F.relu(pixel_shuffle(conv(out)))
             out = F.relu(self.upsample[-1](out))
             if self._coarse:
-                out = self.tail(F.pixel_unshuffle(out, 2))
-                out = F.pixel_shuffle(F.pixel_shuffle(out, 2), 2)
+                out = self.tail(pixel_unshuffle(out))
+                out = pixel_shuffle(pixel_shuffle(out))
             else:
-                out = F.pixel_shuffle(self.tail(out), 2)
+                out = pixel_shuffle(self.tail(out))
         return out.permute(0, 2, 3, 1).float().contiguous()
 
 

@@ -379,7 +379,8 @@ class TestCudaGroupNorm:
         y = gk.group_norm_cuda(x, w, b, 8, 1e-6)
         y2 = gk.group_norm_cuda(x, w, b, 8, 1e-6)
         torch.cuda.synchronize()
-        assert gk.launches == {"group_norm": 2} and gk.paths["vec"] == 2
+        assert gk.launches == {"group_norm": 2, "group_norm_backward": 0}
+        assert gk.paths["vec"] == 2
         assert torch.equal(y, y2)  # fixed-order sums: the same bits twice
         # the float64 plain version (on a part of the scoring batch): within
         # one bf16 ulp of its result rounded once
@@ -396,7 +397,8 @@ class TestCudaGroupNorm:
     def test_kernel_names_are_the_listed_ones(self, cuda_device):
         """Every instance the model can launch shows in the profiler under a
         name of ``PROFILED_NAMES`` (which the CPU test files under the
-        benchmark's ``groupnorm`` group)."""
+        benchmark's ``groupnorm`` group): both layouts, both dtypes, both
+        paths, the NHWC backward."""
         from torch.profiler import ProfilerActivity, profile
 
         from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
@@ -404,14 +406,30 @@ class TestCudaGroupNorm:
         x = torch.randn(2, 16, 9, 16, device=cuda_device)
         w, b = torch.ones(16, device=cuda_device), torch.zeros(16, device=cuda_device)
         odd = torch.randn(2, 16, 7, 5, device=cuda_device)  # the scalar path
-        with profile(activities=[ProfilerActivity.CUDA]):  # starts device tracing
-            gk.group_norm_cuda(x, w, b, 8, 1e-6)
-            torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cl = torch.channels_last
+        # channels-last: C = 16 takes the vector path, C = 10 (20 or 40
+        # bytes a pixel) the scalar one
+        nhwc = [(torch.randn(2, c, 9, 16, device=cuda_device).contiguous(memory_format=cl),
+                 torch.ones(c, device=cuda_device), torch.zeros(c, device=cuda_device), g)
+                for c, g in ((16, 8), (10, 5))]
+
+        def run_all():
             for t in (x, odd):
                 for dt in (torch.float32, torch.bfloat16):
                     gk.group_norm_cuda(t.to(dt), w, b, 8, 1e-6)
+            for t, tw, tb, g in nhwc:
+                for dt in (torch.float32, torch.bfloat16):
+                    xr = t.to(dt).requires_grad_()
+                    gk.GroupNormNHWC.apply(xr, tw, tb, g, 1e-6)[0].float().square().sum().backward()
             torch.cuda.synchronize()
+
+        with profile(activities=[ProfilerActivity.CUDA]):  # starts device tracing
+            gk.group_norm_cuda(x, w, b, 8, 1e-6)
+            torch.cuda.synchronize()
+        gk.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_all()
+        assert gk.paths["nhwc_scalar"] == 2
         names = {e.name for e in prof.events() if "group_norm" in e.name}
         assert names == set(gk.PROFILED_NAMES), sorted(names)
 
@@ -445,7 +463,8 @@ class TestCudaGroupNorm:
         assert torch.equal(y.detach(), want)
         y.float().sum().backward()
         assert x.grad is not None and norm.weight.grad is not None
-        assert gk.paths["grad"] == 1 and gk.launches == {"group_norm": 0}
+        assert gk.paths["grad"] == 1
+        assert gk.launches == {"group_norm": 0, "group_norm_backward": 0}
 
     def test_vmap_route(self, cuda_device):
         from srgan_tpu_torch.models.srresnet import GroupNorm
@@ -456,12 +475,14 @@ class TestCudaGroupNorm:
         gk.reset_launches()
         with torch.no_grad():
             torch.func.vmap(norm)(x)
-        assert gk.paths["vmap"] >= 1 and gk.launches == {"group_norm": 0}
+        assert gk.paths["vmap"] >= 1
+        assert gk.launches == {"group_norm": 0, "group_norm_backward": 0}
 
     def test_4k_request_takes_the_kernels(self, cuda_device):
         """One ``upscale_u8`` of a 4K frame (LR 540x960) in bf16 at the
-        flagship width: 32 norms, all by the kernels' vector path, none by
-        torch's; the same request twice gives the same bytes."""
+        flagship width: 32 norms, all by the NHWC kernels' vector path on
+        the model's channels-last activations, none by torch's; the same
+        request twice gives the same bytes."""
         from srgan_tpu_torch.config import ModelConfig
         from srgan_tpu_torch.eval.inference import Upscaler
         from srgan_tpu_torch.models.srresnet import init_generator
@@ -474,9 +495,9 @@ class TestCudaGroupNorm:
         gk.reset_launches()
         out = up.upscale_u8(img)
         assert out.shape == (2160, 3840, 3)
-        assert gk.launches == {"group_norm": 32}
-        assert gk.paths == {"vec": 32, "scalar": 0, "grad": 0, "vmap": 0, "remat": 0,
-                            "cpu": 0, "cast": 0}
+        assert gk.launches == {"group_norm": 32, "group_norm_backward": 0}
+        assert gk.paths == {"vec": 0, "scalar": 0, "nhwc": 32, "nhwc_grad": 0,
+                            "nhwc_scalar": 0, "grad": 0, "vmap": 0, "cpu": 0, "cast": 0}
         assert np.array_equal(out, up.upscale_u8(img))
 
     def test_fetch_hands_each_caller_its_own_array(self, cuda_device):
@@ -509,9 +530,9 @@ class TestCudaGroupNorm:
     def test_remat_step_matches_without_remat(self, cuda_device):
         """One bf16 pixel step of a remat generator on the card equals the
         step without remat bit for bit (losses, SR, every updated param):
-        the remat block's forward takes torch's GroupNorm, as its
-        backward's recompute does, and no norm of the step takes the
-        kernels."""
+        the remat block's forward (no graph) and its backward's recompute
+        take the same NHWC forward kernels the step without remat takes,
+        and every norm's backward is the NHWC kernels'."""
         from srgan_tpu_torch.config import ModelConfig
         from srgan_tpu_torch.models.srresnet import init_generator
         from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
@@ -533,10 +554,125 @@ class TestCudaGroupNorm:
                           [p.detach().cpu() for p in state.params], dict(gk.paths),
                           dict(gk.launches))
         remat, plain = out[True], out[False]
-        assert remat[3]["remat"] == 8 and plain[3]["remat"] == 0
-        assert remat[4] == plain[4] == {"group_norm": 0}
+        assert remat[3]["nhwc"] == 8 and remat[3]["nhwc_grad"] == 8  # forward, recompute
+        assert plain[3]["nhwc"] == 0 and plain[3]["nhwc_grad"] == 8
+        assert remat[3]["grad"] == plain[3]["grad"] == 0
+        assert remat[4] == {"group_norm": 16, "group_norm_backward": 8}
+        assert plain[4] == {"group_norm": 8, "group_norm_backward": 8}
         assert torch.equal(remat[0], plain[0]) and torch.equal(remat[1], plain[1])
         assert all(torch.equal(a, b) for a, b in zip(remat[2], plain[2]))
+
+
+def _small_pixel_grads(cuda_device, hooks=None):
+    """The pixel loss's gradients, one bf16 step's, of a F=64, 4-block
+    generator on (2, 64, 64) LR crops, x4, laid out as the training batches
+    are; ``hooks(model)`` before it."""
+    from srgan_tpu_torch.config import ModelConfig
+    from srgan_tpu_torch.models.srresnet import init_generator
+    from srgan_tpu_torch.training.steps import generator_pixel_loss_fn
+
+    rng = np.random.default_rng(0)
+    hr = torch.from_numpy(rng.random((2, 256, 256, 3), dtype=np.float32)).to(cuda_device)
+    lr_imgs = torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32)).to(cuda_device)
+    # in memory as batch prep's resize einsum leaves it: (B, H, C, W)
+    lr_imgs = lr_imgs.transpose(2, 3).contiguous().transpose(2, 3)
+    cfg = ModelConfig(num_features=64, num_residuals=4, compute_dtype="bfloat16")
+    model = init_generator(cfg, seed=0, device=cuda_device)
+    if hooks is not None:
+        hooks(model)
+    loss, _ = generator_pixel_loss_fn(model, hr, lr_imgs, None, 0.0, None)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    return grads
+
+
+@pytest.mark.cuda
+class TestChannelsLastModel:
+    """SRResNet's activations stay channels-last from the stem to the head
+    on the card: every conv gets channels-last input, every norm takes the
+    NHWC kernels, forward and backward, and cuDNN transposes nothing."""
+
+    def test_training_step_stays_channels_last(self, cuda_device):
+        from torch.profiler import ProfilerActivity, profile
+
+        from srgan_tpu_torch.models.srresnet import Conv2d
+        from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
+
+        seen = []
+
+        def hooks(model):
+            for m in model.modules():
+                if isinstance(m, Conv2d):
+                    m.register_forward_pre_hook(lambda mod, args: seen.append(
+                        args[0].is_contiguous(memory_format=torch.channels_last)))
+
+        _small_pixel_grads(cuda_device)  # warm: cuDNN's choices, the build
+        gk.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _small_pixel_grads(cuda_device, hooks)
+        # stem, 4 x 2 block convs, mid, 2 upsample convs, the phase conv
+        assert len(seen) == 13 and all(seen), seen
+        assert gk.paths["nhwc_grad"] == 8 and gk.paths["nhwc_scalar"] == 0
+        assert sum(gk.paths.values()) == 8
+        assert gk.launches == {"group_norm": 8, "group_norm_backward": 8}
+        names = {e.name for e in prof.events()}
+        transposes = sorted(n for n in names if "nchwToNhwc" in n or "nhwcToNchw" in n)
+        assert not transposes, transposes
+
+    def test_gradients_agree_with_torchs_route(self, cuda_device, monkeypatch):
+        """The step's gradients by the NHWC kernels against the same step with
+        every norm on torch's ``native_group_norm`` (the route for NCHW input
+        with a gradient), to the bf16 bar of the tower tests: ||Δ|| / ||g||
+        ≤ 1e-1 a param."""
+        from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
+
+        grads = {}
+        for route in ("nhwc", "native"):
+            if route == "native":
+                monkeypatch.setattr(gk, "channels_last", lambda x: False)
+            gk.reset_launches()
+            grads[route] = _small_pixel_grads(cuda_device)
+            key = "nhwc_grad" if route == "nhwc" else "grad"
+            assert gk.paths[key] == 8 and sum(gk.paths.values()) == 8
+        for a, b in zip(grads["nhwc"], grads["native"]):
+            assert float((a - b).norm()) <= 1e-1 * float(b.norm()) + 1e-12
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+    def test_backward_matches_native_at_the_step_shape(self, cuda_device, dtype):
+        """One norm's backward at the pixel cell's shape, (24, 64, 128, 256)
+        channels-last, against torch's ``native_group_norm`` on the f32
+        cast: dx within one ulp of x's dtype at the largest |dx| (bf16) or
+        1e-5 of it (f32); dweight and dbias within 1e-5 of the sum of their
+        terms' magnitudes (both reduce ~786 K values a channel in other
+        orders); the same bits twice."""
+        from srgan_tpu_torch.ops.cuda import group_norm_kernel as gk
+
+        g = torch.Generator(device=cuda_device).manual_seed(0)
+        shape, cl = (24, 64, 128, 256), torch.channels_last
+        x = (torch.randn(shape, generator=g, device=cuda_device) * 1.5 + 0.3).to(dtype)
+        x = x.contiguous(memory_format=cl)
+        dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype).contiguous(
+            memory_format=cl)
+        w = torch.rand(64, generator=g, device=cuda_device) + 0.5
+        b = torch.rand(64, generator=g, device=cuda_device) - 0.5
+        grads = []
+        for _ in range(2):
+            xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, w, b))
+            gk.GroupNormNHWC.apply(xr, wr, br, 8, 1e-6)[0].backward(dy)
+            grads.append((xr.grad, wr.grad, br.grad))
+        assert all(torch.equal(a, b_) for a, b_ in zip(*grads))
+        assert gk.channels_last(grads[0][0])
+        xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        gk.native_group_norm(xr, wr, br, 8, 1e-6, dtype).backward(dy)
+        dx, dw, db = grads[0]
+        top = float(xr.grad.abs().max())
+        bar = 2.0 ** (math.floor(math.log2(top)) - 7) if dtype == torch.bfloat16 else 1e-5 * top
+        assert float((dx.double() - xr.grad.double()).abs().max()) <= bar
+        xg = x.double().reshape(24, 8, -1)
+        xh = ((xg - xg.mean(-1, keepdim=True)) / xg.std(-1, unbiased=False, keepdim=True))
+        terms = (dy.double().abs() * (1 + xh.reshape(shape).abs())).sum((0, 2, 3))
+        assert bool(((dw.double() - wr.grad.double()).abs() <= 1e-5 * terms).all())
+        assert bool(((db.double() - br.grad.double()).abs() <= 1e-5 * terms).all())
 
 
 @pytest.mark.cuda

@@ -70,11 +70,62 @@ class TestPixelShuffle:
         back = pixel_shuffle(torch.from_numpy(got), r).numpy()
         np.testing.assert_array_equal(back, x)
 
+    @pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+    @pytest.mark.parametrize("op", ["shuffle", "unshuffle"])
+    def test_model_helpers_match_torch_and_stay_channels_last(self, rng, op, layout):
+        """The model's (un)shuffle of an NCHW-shaped batch equals
+        ``F.pixel_(un)shuffle`` bit for bit, in value and in gradient (a
+        channels-last input's gradient in channels-last memory), and returns
+        channels-last memory whatever the input's layout."""
+        import torch.nn.functional as F
+
+        from srgan_tpu_torch.models import srresnet
+
+        shape = (2, 12, 6, 10) if op == "shuffle" else (2, 3, 6, 10)
+        helper, ref = ((srresnet.pixel_shuffle, F.pixel_shuffle) if op == "shuffle"
+                       else (srresnet.pixel_unshuffle, F.pixel_unshuffle))
+        x = torch.from_numpy(rng.random(shape).astype(np.float32))
+        x = x.contiguous(memory_format={"channels_last": torch.channels_last,
+                                        "contiguous": torch.contiguous_format}[layout])
+        xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+        got, want = helper(xa), ref(xb, 2)
+        assert torch.equal(got, want)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        g = torch.from_numpy(rng.random(tuple(want.shape)).astype(np.float32))
+        g = g.contiguous(memory_format=torch.channels_last)
+        got.backward(g)
+        want.backward(g)
+        assert torch.equal(xa.grad, xb.grad)
+        if layout == "channels_last":  # a leaf's gradient takes the leaf's layout
+            assert xa.grad.is_contiguous(memory_format=torch.channels_last)
+
     def test_bad_channels_raise(self):
         with pytest.raises(ValueError):
             pixel_shuffle(torch.zeros(1, 2, 2, 6), 2)
         with pytest.raises(ValueError):
             pixel_unshuffle(torch.zeros(1, 3, 2, 3), 2)
+
+
+def test_model_lays_its_input_out_channels_last():
+    """Whatever the strides of the NHWC batch (batch prep's resize einsum
+    leaves its LR (B, H, C, W)-ordered), the stem gets a channels-last
+    tensor, so cuDNN runs the model NHWC from its first conv; the output is
+    a contiguous NHWC batch with the values of the NHWC-contiguous input's."""
+    from srgan_tpu_torch.ops.resize import prepare_batch
+
+    model = SRResNet(num_features=8, num_residuals=1)
+    hr_u8 = torch.randint(0, 256, (2, 32, 64, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(0))
+    _, lr = prepare_batch(hr_u8, torch.Generator().manual_seed(1))
+    assert not lr.is_contiguous()
+    seen = []
+    model.stem.register_forward_pre_hook(lambda mod, args: seen.append(
+        args[0].is_contiguous(memory_format=torch.channels_last)))
+    with torch.no_grad():
+        out = model(lr)
+        want = model(lr.contiguous())
+    assert seen == [True, True]
+    assert out.is_contiguous() and torch.equal(out, want)
 
 
 class TestSRResNetParity:
